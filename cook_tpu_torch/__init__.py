@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of cook_tpu's device path (NVIDIA Hopper).
+
+The device-resident sequential match cycle — packed delta scatters, DRU
+rank, quota/considerable filter, the Fenzo-style sequential match and
+the compaction/provenance epilogue — in plain PyTorch, with the whole
+sequential match walk as one hand-written CUDA kernel for sm_90a
+(`ops/fused_match.py`, `csrc/exact_scan.cu`).
+
+The package imports torch and numpy only: never jax and nothing of
+`cook_tpu`; what it needs from host-only modules there is copied here.
+Entry points take an explicit `device` ("cuda" by default) and raise
+when CUDA is absent unless the caller asked for "cpu".
+"""
+from cook_tpu_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

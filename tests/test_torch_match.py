@@ -1,0 +1,217 @@
+"""The port's sequential match (cook_tpu_torch/ops/match.py,
+ops/fused_match.py) against the JAX package on the same seeded inputs,
+on the CPU.
+
+Tolerances: `job_host` exact. Host lanes of the kernel's plain version
+against the Pallas kernel in interpret mode: bit-equal (same reciprocal
+formula, same f32 operation order). Against `_scan_assign` (division
+formula) the host lanes are held as tests/test_pallas_match.py holds
+them: mem within 1e-2, slots within 1e-3, occupancy exact.
+"""
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from cook_tpu.ops import match as jmatch
+from cook_tpu.ops import pallas_match
+from cook_tpu_torch import convert
+from cook_tpu_torch.ops import fused_match
+from cook_tpu_torch.ops import match as tmatch
+
+
+def pallas_problem(seed, S=64, H=1024):
+    """The inputs of tests/test_pallas_match.py:157-171."""
+    rng = np.random.default_rng(seed)
+    mem_h = np.where(np.arange(H) % 2 == 0, 4000.0,
+                     rng.uniform(2000, 16000, H)).astype(np.float32)
+    hb = jmatch.make_hosts(
+        mem=mem_h, cpus=rng.uniform(4, 32, H).astype(np.float32),
+        gpus=np.where(np.arange(H) % 13 == 0, 4.0, 0.0).astype(np.float32),
+        task_slots=np.full(H, 5, np.int32))
+    jb = jmatch.make_jobs(
+        mem=rng.uniform(100, 8000, S).astype(np.float32),
+        cpus=rng.uniform(0.5, 8, S).astype(np.float32),
+        gpus=np.where(rng.random(S) < 0.12, 1.0, 0.0).astype(np.float32),
+        unique_group=(rng.random(S) < 0.2),
+        group=np.zeros(S, np.int32))
+    forb = jnp.asarray(rng.random((S, H)) < 0.08)
+    return jb, hb, forb
+
+
+def packed(jb, hb, H, occ0=None):
+    jp = pallas_match.pack_jobs(jb.mem, jb.cpus, jb.gpus, jb.valid,
+                                jb.unique_group)
+    occ = jnp.zeros(H, bool) if occ0 is None else jnp.asarray(occ0)
+    hp = pallas_match.pack_hosts(hb.mem, hb.cpus, hb.gpus, hb.cap_mem,
+                                 hb.cap_cpus, hb.cap_gpus, hb.task_slots,
+                                 hb.valid, occ)
+    return jp, hp
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_exact_scan_plain_equals_pallas_interpret(seed):
+    jb, hb, forb = pallas_problem(seed)
+    H = 1024
+    jp, hp = packed(jb, hb, H)
+    fu8 = forb.astype(jnp.uint8)
+    jh_ref, hout_ref = pallas_match.exact_scan(jp, hp, fu8, interpret=True)
+    jh, hout = fused_match.exact_scan(*convert.tensors((jp, hp, fu8), "cpu"))
+    np.testing.assert_array_equal(jh.numpy(), np.asarray(jh_ref))
+    np.testing.assert_array_equal(hout.numpy(), np.asarray(hout_ref))
+    # and against the XLA scan, as the reference's own test holds it
+    carry = (hb.mem, hb.cpus, hb.gpus, hb.task_slots,
+             jnp.zeros((1, H), bool))
+    c_ref, ref_hosts = jmatch._scan_assign(
+        jb, hb, forb, jnp.zeros((64, H), jnp.float32), 1, carry)
+    np.testing.assert_array_equal(jh.numpy(), np.asarray(ref_hosts))
+    np.testing.assert_allclose(hout[fused_match.H_MEM].numpy(),
+                               np.asarray(c_ref[0]), atol=1e-2)
+    np.testing.assert_allclose(hout[fused_match.H_SLOTS].numpy(),
+                               np.asarray(c_ref[3]).astype(np.float32),
+                               atol=1e-3)
+    np.testing.assert_array_equal(hout[fused_match.H_OCC0].numpy() > 0,
+                                  np.asarray(c_ref[4][0]))
+
+
+def test_pack_equals_reference():
+    jb, hb, _ = pallas_problem(3, S=16, H=128)
+    occ = np.random.default_rng(3).random(128) < 0.2
+    jp, hp = packed(jb, hb, 128, occ)
+    tj = convert.jobs(jb, "cpu")
+    th = convert.hosts(hb, "cpu")
+    tjp = fused_match.pack_jobs(tj.mem, tj.cpus, tj.gpus, tj.valid,
+                                tj.unique_group)
+    thp = fused_match.pack_hosts(th.mem, th.cpus, th.gpus, th.cap_mem,
+                                 th.cap_cpus, th.cap_gpus, th.task_slots,
+                                 th.valid, torch.from_numpy(occ))
+    np.testing.assert_array_equal(tjp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(thp.numpy(), np.asarray(hp))
+
+
+def _match_problem(seed, n=48, h=96, groups=4):
+    rng = np.random.default_rng(seed)
+    grp = rng.integers(-1, groups, n).astype(np.int32)
+    kw = dict(mem=rng.uniform(1, 20, n).astype(np.float32),
+              cpus=rng.uniform(0.5, 8, n).astype(np.float32),
+              gpus=np.where(rng.random(n) < 0.1, 1.0, 0.0).astype(np.float32),
+              valid=rng.random(n) < 0.95, group=grp,
+              unique_group=(grp >= 0) & (rng.random(n) < 0.7))
+    hkw = dict(mem=rng.uniform(20, 80, h).astype(np.float32),
+               cpus=rng.uniform(4, 24, h).astype(np.float32),
+               gpus=np.where(rng.random(h) < 0.1, 4.0, 0.0).astype(np.float32),
+               task_slots=rng.integers(0, 4, h).astype(np.int32))
+    forb = rng.random((n, h)) < 0.1
+    bonus = rng.uniform(0, 0.3, (n, h)).astype(np.float32)
+    return kw, hkw, forb, bonus
+
+
+def _compare_match(ref, got):
+    np.testing.assert_array_equal(got.job_host.numpy(),
+                                  np.asarray(ref.job_host))
+    for name in ("mem_left", "cpus_left", "gpus_left"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(ref, name)),
+                                   rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got.slots_left.numpy(),
+                                  np.asarray(ref.slots_left))
+
+
+@pytest.mark.parametrize("case", ["groups", "bonus", "groups_bonus",
+                                  "single_kernel"])
+def test_match_scan_equals_jax(case):
+    kw, hkw, forb, bonus = _match_problem(
+        {"groups": 0, "bonus": 1, "groups_bonus": 2, "single_kernel": 3}[case])
+    num_groups = 1 if case in ("bonus", "single_kernel") else 4
+    if num_groups == 1:
+        kw["group"] = np.where(kw["group"] >= 0, 0, -1).astype(np.int32)
+    use_bonus = "bonus" in case
+    jb, hb = jmatch.make_jobs(**kw), jmatch.make_hosts(**hkw)
+    ref = jmatch.match_scan(jb, hb, jnp.asarray(forb), num_groups=num_groups,
+                            bonus=jnp.asarray(bonus) if use_bonus else None)
+    tj = tmatch.make_jobs(**kw, device="cpu")
+    th = tmatch.make_hosts(**hkw, device="cpu")
+    fused_match.reset_launches()
+    got = tmatch.match_scan(tj, th, torch.from_numpy(forb),
+                            num_groups=num_groups,
+                            bonus=torch.from_numpy(bonus) if use_bonus
+                            else None, use_kernel=True)
+    _compare_match(ref, got)
+    assert fused_match.LAUNCHES["exact_scan"] == 0   # CPU: plain version
+
+
+def _adversarial(case):
+    rng = np.random.default_rng(11)
+    if case == "all_tie":
+        S, H = 16, 256
+        jb = jmatch.make_jobs(mem=np.full(S, 1.0, np.float32),
+                              cpus=np.full(S, 1.0, np.float32))
+        hb = jmatch.make_hosts(mem=np.full(H, 16.0, np.float32),
+                               cpus=np.full(H, 16.0, np.float32),
+                               task_slots=np.full(H, 5, np.int32))
+        forb = np.zeros((S, H), bool)
+    elif case == "all_infeasible":
+        S, H = 16, 256
+        jb = jmatch.make_jobs(mem=rng.uniform(1, 4, S).astype(np.float32),
+                              cpus=rng.uniform(1, 2, S).astype(np.float32))
+        hb = jmatch.make_hosts(mem=rng.uniform(8, 16, H).astype(np.float32),
+                               cpus=rng.uniform(4, 8, H).astype(np.float32))
+        forb = np.ones((S, H), bool)
+    else:   # H not a multiple of 1024 (nor of 32)
+        S, H = 40, 1000
+        jb = jmatch.make_jobs(
+            mem=rng.uniform(1, 30, S).astype(np.float32),
+            cpus=rng.uniform(0.5, 6, S).astype(np.float32),
+            gpus=np.where(rng.random(S) < 0.1, 1.0, 0.0).astype(np.float32),
+            unique_group=rng.random(S) < 0.3, group=np.zeros(S, np.int32))
+        hb = jmatch.make_hosts(
+            mem=rng.uniform(10, 40, H).astype(np.float32),
+            cpus=rng.uniform(2, 12, H).astype(np.float32),
+            gpus=np.where(rng.random(H) < 0.05, 2.0, 0.0).astype(np.float32),
+            task_slots=rng.integers(0, 3, H).astype(np.int32))
+        forb = rng.random((S, H)) < 0.02
+    return jb, hb, forb, S, H
+
+
+@pytest.mark.parametrize("case", ["all_tie", "all_infeasible", "h1000"])
+def test_exact_scan_adversarial(case):
+    jb, hb, forb, S, H = _adversarial(case)
+    carry = (hb.mem, hb.cpus, hb.gpus, hb.task_slots,
+             jnp.zeros((1, H), bool))
+    c_ref, ref_hosts = jmatch._scan_assign(
+        jb, hb, jnp.asarray(forb), jnp.zeros((S, H), jnp.float32), 1, carry)
+    jp, hp = packed(jb, hb, H)
+    jh, hout = fused_match.exact_scan(
+        *convert.tensors((jp, hp, forb.astype(np.uint8)), "cpu"))
+    np.testing.assert_array_equal(jh.numpy(), np.asarray(ref_hosts))
+    np.testing.assert_allclose(hout[fused_match.H_MEM].numpy(),
+                               np.asarray(c_ref[0]), atol=1e-5)
+    np.testing.assert_array_equal(hout[fused_match.H_SLOTS].numpy(),
+                                  np.asarray(c_ref[3]).astype(np.float32))
+    if case == "all_tie":
+        # each job takes the lowest-index host with the best fitness:
+        # the first host fills up its 5 slots, then the next
+        np.testing.assert_array_equal(jh.numpy(), np.arange(S) // 5)
+    if case == "all_infeasible":
+        assert (jh.numpy() == -1).all()
+        np.testing.assert_array_equal(hout.numpy(), hp)
+
+
+def test_exact_scan_gate():
+    assert fused_match.exact_scan_ok(1024, 16384, 1)   # TPU gate refused
+    assert fused_match.exact_scan_ok(8, 1000, 1)
+    assert not fused_match.exact_scan_ok(1024, 16384, 2)
+    assert not fused_match.exact_scan_ok(4, 1024, 1)
+    assert not pallas_match.exact_scan_ok(1024, 16384, 1)
+
+
+def test_inversion_audit_copy_agrees():
+    kw, hkw, forb, _ = _match_problem(5, groups=1)
+    kw["unique_group"] = np.zeros_like(kw["unique_group"])
+    jb, hb = jmatch.make_jobs(**kw), jmatch.make_hosts(**hkw)
+    jh = np.random.default_rng(5).integers(-1, 96, 48)
+    ref = jmatch.inversion_positions_np(jb, hb, forb, jh)
+    got = tmatch.inversion_positions_np(
+        tmatch.make_jobs(**kw, device="cpu"),
+        tmatch.make_hosts(**hkw, device="cpu"), forb, torch.from_numpy(jh))
+    np.testing.assert_array_equal(got, ref)
