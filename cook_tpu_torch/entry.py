@@ -11,7 +11,10 @@ cycle_args(...)        -> the seeded `rank_and_match` workload; the base
 ResidentWorkload(...)  -> a populated `ResidentState` plus a seeded stream
                           of per-cycle deltas: completions credit hosts,
                           matched jobs start running, new pending jobs
-                          (some constrained) arrive.
+                          (some constrained) arrive. Each cycle takes the
+                          coordinator's matcher for its C: sequential up
+                          to SEQUENTIAL_MATCH_THRESHOLD, `match_rounds`
+                          beyond.
 """
 from __future__ import annotations
 
@@ -32,6 +35,23 @@ INF = np.float32(3.4e38)
 # resident workload mix: shares of gpu hosts and gpu jobs, and the share
 # of hosts each constrained job forbids
 GPU_HOSTS, GPU_JOBS, FORBID_DENSITY = 0.05, 0.01, 0.05
+
+# the coordinator's matcher choice (a copy of cook_tpu's
+# SchedulerConfig.sequential_match_threshold and the dispatch at
+# coordinator.py:898-905): the exact sequential walk for a considerable
+# batch of at most this many jobs, the batched match_rounds beyond
+SEQUENTIAL_MATCH_THRESHOLD = 2048
+# the coordinator's audit-gated exact-head ladder for match_rounds
+# (AdaptiveHead, coordinator.py:162-164) and its starting rung, which is
+# also match_rounds' default head_exact
+HEAD_LADDER = (0, 64, 128, 256)
+HEAD_START = 256
+
+
+def sequential_for(num_considerable: int) -> bool:
+    """True when the coordinator matches a batch of this size with the
+    sequential walk, False when it takes match_rounds."""
+    return num_considerable <= SEQUENTIAL_MATCH_THRESHOLD
 
 
 def cycle_arrays(R=256, Pn=512, H=64, U=16, seed=0, constrained=0.0,
@@ -257,11 +277,15 @@ class ResidentWorkload:
         self.now_s += 10
         self._arrive(len(mat_idx))
 
-    def cycle(self, use_kernel: bool = True, matcher=None):
+    def cycle(self, use_kernel: bool = True, sequential=None,
+              match_kw=None):
         """Ship, run one device cycle, read back, advance. Returns
-        (device outputs, mat_idx, mat_host). `matcher` overrides the
-        match step as in `rank_and_match`."""
+        (device outputs, mat_idx, mat_host). `sequential` defaults to
+        the coordinator's choice for C (`sequential_for`); `match_kw`
+        goes to match_rounds."""
         rs = self.rs
+        if sequential is None:
+            sequential = sequential_for(self.C)
         cuda = self.device.type == "cuda"
         if cuda:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -271,7 +295,7 @@ class ResidentWorkload:
         t1 = time.perf_counter()
         out = rs.dispatch(bundle, self.qm, self.qc, self.qn, self.C,
                           self.now_s, self.C, use_kernel=use_kernel,
-                          matcher=matcher)
+                          sequential=sequential, match_kw=match_kw)
         mat_idx, mat_host = rs.readback(out)
         t2 = time.perf_counter()
         if cuda:
@@ -295,5 +319,7 @@ class ResidentWorkload:
 def resident_workload(**kw) -> ResidentWorkload:
     """A populated resident pool plus its seeded delta stream (see
     `ResidentWorkload`; defaults are the 100k-pending x 10k-host
-    deployment: R=10,000, P=100,000, H=10,000, U=500, C=1024)."""
+    deployment: R=10,000, P=100,000, H=10,000, U=500, C=1024, the
+    sequential path; C=8192 is BASELINE's headline batched cycle,
+    bench.py `bench_cycle`)."""
     return ResidentWorkload(**kw)

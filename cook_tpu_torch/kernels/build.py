@@ -25,13 +25,16 @@ BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-KERNELS = ("exact_scan",)
+KERNELS = ("exact_scan", "best_host")
 
 # argtypes of each kernel's launch function
 _SIGNATURES = {
     "exact_scan": ("exact_scan_launch",
                    [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
                                             ctypes.c_void_p]),
+    "best_host": ("best_host_launch",
+                  [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_float, ctypes.c_void_p]),
 }
 
 _lock = threading.Lock()

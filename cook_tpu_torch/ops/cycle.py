@@ -7,8 +7,11 @@ compaction/provenance epilogue (a port of cook_tpu/ops/cycle.py:37-347).
      those whose user stays under their resource/count quota given
      running usage plus the queue prefix ahead of them, capped at
      `num_considerable` and the dynamic `considerable_limit`,
-  3. match: sequential greedy assignment of the considerable jobs onto
-     hosts (ops/match.py; the exact_scan kernel when eligible),
+  3. match: greedy assignment of the considerable jobs onto hosts
+     (ops/match.py): the sequential walk (the exact_scan kernel when
+     eligible) or, with `sequential=False`, the batched `match_rounds`
+     (its exact head and dense rounds through the exact_scan and
+     best_host kernels when eligible),
   4. epilogue: matched slots packed to the front in queue order, and a
      reason code per fair-queue position.
 
@@ -51,15 +54,6 @@ class CycleResult(NamedTuple):
     why_amt: torch.Tensor         # (W,) f32 code-specific datum
 
 
-def _scatter_sink(n, fill, idx, values):
-    """out[idx] = values over a (n + 1,)-slot buffer whose last slot
-    absorbs the dropped writes (idx == n); returns out[:n]."""
-    out = torch.full((n + 1,), fill, dtype=values.dtype,
-                     device=values.device)
-    out[idx.long()] = values
-    return out[:n]
-
-
 def rank_and_match(
     # running tasks (R slots)
     run_user, run_mem, run_cpus, run_prio, run_start, run_valid,
@@ -82,9 +76,12 @@ def rank_and_match(
     considerable_limit=None,   # dynamic scaleback cap (int or 0-d tensor)
     bonus=None,                # None | (P, H) f32 | tuple (rows (Kb, H)
                                # f32, slot_of (P,) i32), like `forbidden`
-    use_kernel: bool = False,  # the reference's `use_pallas`: run the
-                               # match walk as the exact_scan CUDA kernel
-                               # when eligible (num_groups == 1, no bonus)
+    use_kernel: bool = False,  # the reference's `use_pallas`: the
+                               # sequential walk as the exact_scan kernel
+                               # (num_groups == 1, no bonus); in
+                               # match_rounds also the head (same gate)
+                               # and the dense rounds' best_host kernel
+                               # (num_groups == 1)
     dru_mode: str = "default",  # "default" (cpu/mem) | "gpu"
     run_gpus=None,             # (R,) — required in gpu mode
     run_gpu_share=None,        # (R,) — required in gpu mode
@@ -96,15 +93,15 @@ def rank_and_match(
     now_s=None,                # () i32 wall clock, same epoch
     matcher=None,              # match-step override: callable
                                # (jobs, hosts, forb, bonus) -> MatchResult
+    match_kw=None,             # extra match_rounds knobs (head_exact,
+                               # dense_rounds, rounds, ...) as a mapping
+                               # or (name, value) pairs; ignored on the
+                               # sequential path
 ) -> CycleResult:
     R = run_user.shape[0]
     P = pend_user.shape[0]
     U = user_quota_mem.shape[0]
     dev = pend_user.device
-    if matcher is None and not sequential:
-        raise NotImplementedError(
-            "match_rounds (sequential=False) is not ported yet: see "
-            "ROADMAP.md, the match_rounds/best_host item")
 
     # ---- 1. rank union of running + pending --------------------------
     user = torch.cat([run_user, pend_user])
@@ -182,7 +179,7 @@ def rank_and_match(
                             dtype=torch.int32) - 1
     slot = torch.where(considerable_q, torch.clamp(cons_pos, max=C), C)
     # src[c] = queue position feeding compact slot c (P = empty slot)
-    src = _scatter_sink(C, P, slot, arP)
+    src = match_ops.scatter_sink(C, P, slot, arP)
     in_use = src < P
     pend_idx = queue_perm[torch.clamp(src, 0, P - 1).long()]
 
@@ -224,14 +221,20 @@ def rank_and_match(
         bonusc = bonus[pend_idx] * in_use[:, None]
     if matcher is not None:
         res = matcher(jobs, hosts, forb, bonusc)
-    else:
+    elif sequential:
         res = match_ops.match_scan(jobs, hosts, forb, num_groups=num_groups,
                                    bonus=bonusc,
                                    use_kernel=use_kernel and bonus is None)
+    else:
+        kw = {"rounds": 4, **dict(match_kw or ())}
+        res = match_ops.match_rounds(jobs, hosts, forb,
+                                     num_groups=num_groups, bonus=bonusc,
+                                     use_kernel=use_kernel, **kw)
     res_host = res.job_host.to(torch.int32)
     # scatter back: compact -> original pending order (empty slots -> P)
     scatter_idx = torch.where(in_use, pend_idx, P)
-    job_host = _scatter_sink(P, match_ops.NO_HOST, scatter_idx, res_host)
+    job_host = match_ops.scatter_sink(P, match_ops.NO_HOST, scatter_idx,
+                                      res_host)
 
     # compact outputs: slot order IS queue order
     cons_idx = torch.where(in_use, pend_idx, -1).to(torch.int32)
@@ -241,8 +244,8 @@ def rank_and_match(
     mat_pos = torch.cumsum(matched_slot.to(torch.int32), 0,
                            dtype=torch.int32) - 1
     mslot = torch.where(matched_slot, torch.clamp(mat_pos, max=C), C)
-    mat_idx = _scatter_sink(C, -1, mslot, cons_idx)
-    mat_host = _scatter_sink(C, -1, mslot, res_host)
+    mat_idx = match_ops.scatter_sink(C, -1, mslot, cons_idx)
+    mat_host = match_ops.scatter_sink(C, -1, mslot, res_host)
 
     # ---- 4. decision provenance over W = min(C, P) queue positions ----
     W = min(C, P)

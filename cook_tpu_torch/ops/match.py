@@ -1,16 +1,27 @@
-"""Job <-> offer bin-packing match, sequential half (a port of
-cook_tpu/ops/match.py:80-348, 811-909).
+"""Job <-> offer bin-packing match (a port of cook_tpu/ops/match.py).
 
 For each considerable job in fair-queue order, pick the host with the
 best cpuMemBinPacker fitness among hosts that fit and satisfy all hard
 constraints, depleting host resources as it goes (Fenzo's
 `scheduleOnce`). Ties break toward the lowest host index.
 
-`_scan_core` runs the whole walk as one hand-written CUDA kernel
-(`fused_match.exact_scan`) when `use_kernel` is set, the batch has a
-single placement group and no fitness bonus — the reference's own
-branching (match.py:304-321) — and the plain `_scan_assign` loop
-otherwise. The batched `match_rounds` half is not ported yet.
+  match_scan    the exact sequential walk. `_scan_core` runs it as one
+                hand-written CUDA kernel (`fused_match.exact_scan`) when
+                `use_kernel` is set, the batch has a single placement
+                group and no fitness bonus — the reference's own
+                branching (match.py:304-321) — and the plain
+                `_scan_assign` loop otherwise.
+  match_rounds  the batched matcher for large batches: an exact head
+                through `_scan_core`, water-fill window rounds, pairing
+                rounds, and dense rounds whose (D, H) score + argmax is
+                the `fused_match.best_host` kernel when `use_kernel` is
+                set and the batch has a single placement group.
+
+The reference's pure, jitted closures become eager PyTorch: `.at[].set(
+mode="drop")` scatters write into a buffer with one sink slot, and each
+`lax.while_loop` runs on the host, reading its predicate back once per
+iteration (an idle round is a no-op, so the runtime skip changes cost,
+not the result).
 """
 from __future__ import annotations
 
@@ -21,8 +32,20 @@ import torch
 
 from cook_tpu_torch.device import resolve_device
 from cook_tpu_torch.ops import fused_match
+from cook_tpu_torch.ops.segments import (cumsum0, segment_cumsum,
+                                         segment_sum_scan)
 
 NO_HOST = -1
+BIG = 3.4e38        # sort key that puts unusable hosts / jobs last
+
+
+def scatter_sink(n, fill, idx, values):
+    """out[idx] = values over a (n + 1,)-slot buffer whose last slot
+    absorbs the dropped writes (idx == n); returns out[:n]."""
+    out = torch.full((n + 1,), fill, dtype=values.dtype,
+                     device=values.device)
+    out[idx.long()] = values
+    return out[:n]
 
 
 class Jobs(NamedTuple):
@@ -161,6 +184,334 @@ def match_scan(jobs: Jobs, hosts: Hosts, forbidden: torch.Tensor,
     (mem_left, cpus_left, gpus_left, slots_left, _), job_host = _scan_core(
         jobs, hosts, forbidden, bonus, num_groups, carry,
         use_kernel=use_kernel, bonus_zero=bonus is None)
+    return MatchResult(job_host, mem_left, cpus_left, gpus_left, slots_left)
+
+
+# ---- batched matcher (match.py:351-808) --------------------------------
+
+def _host_sums(acc_host, vals, H):
+    """Per-host sums (H, k) of the rows of `vals` (n, k) f32 at acc_host
+    (n,) in [0, H] (H = dropped). Each host's rows are added in one fixed
+    order, whatever the device and the magnitudes: rows stably sorted by
+    host, `segment_sum_scan` over them, read at each host's last row.
+    (`index_add_` of floats on CUDA adds in no fixed order: the kernel
+    run and the plain replay could deplete a host differently, and a
+    later round then choose another host.)"""
+    perm = torch.argsort(acc_host, stable=True)
+    seg = acc_host[perm]
+    sums = segment_sum_scan(vals[perm], seg)
+    last = torch.ones_like(seg, dtype=torch.bool)
+    last[:-1] = seg[:-1] != seg[1:]
+    out = torch.zeros((H + 1, vals.shape[1]), dtype=vals.dtype,
+                      device=vals.device)
+    out[torch.where(last, seg, H)] = sums
+    return out[:H]
+
+
+def compute_accept(state, choice, bids, jmem, jcpus, jgpus, jgroup,
+                   junique, num_groups):
+    """Which bids hosts accept (match.py:431-476): claimants in queue
+    order while they still fit — bidders stably sorted by host, a
+    segmented cumsum of their demands — and at most the first member of
+    each unique (group, host) pair, never onto a host that already holds
+    one. Works on any queue-ordered row set; returns the accept mask."""
+    _, mem_left, cpus_left, gpus_left, slots_left, group_occ = state
+    n = jmem.shape[0]
+    H = mem_left.shape[0]
+    sort_host = torch.where(bids, choice, H)       # non-bidders last
+    perm = torch.argsort(sort_host, stable=True)
+    p_host = sort_host[perm]
+    p_bids = bids[perm]
+    vals = torch.stack([jmem[perm], jcpus[perm], jgpus[perm],
+                        torch.ones(n, dtype=torch.float32,
+                                   device=jmem.device)], -1)
+    cums = segment_cumsum(torch.where(p_bids[:, None], vals, 0.0), p_host)
+    ph = torch.clamp(p_host, 0, H - 1)
+    fits_prefix = ((cums[:, 0] <= mem_left[ph] + 1e-6)
+                   & (cums[:, 1] <= cpus_left[ph] + 1e-6)
+                   & (cums[:, 2] <= gpus_left[ph] + 1e-6)
+                   & (cums[:, 3] <= slots_left[ph]))
+    p_group = jgroup[perm].long()
+    p_unique = junique[perm]
+    gh_key = torch.where(p_unique, p_group * (H + 1) + ph, -1)
+    gperm = torch.argsort(gh_key, stable=True)
+    sk = gh_key[gperm]
+    first_sorted = torch.ones(n, dtype=torch.bool, device=sk.device)
+    first_sorted[1:] = sk[1:] != sk[:-1]
+    first_of_gh = torch.empty_like(first_sorted)
+    first_of_gh[gperm] = first_sorted
+    occupied = group_occ[torch.clamp(p_group, 0, num_groups - 1), ph]
+    accept_sorted = (p_bids & fits_prefix & (first_of_gh | ~p_unique)
+                     & ~(p_unique & occupied))
+    accept = torch.empty_like(accept_sorted)
+    accept[perm] = accept_sorted
+    return accept
+
+
+def apply_accept(state, choice, accept, jmem, jcpus, jgpus, jgroup,
+                 junique, num_groups, row_idx=None):
+    """Commit accepted assignments (match.py:478-504): record hosts,
+    deplete host resources, fold unique-group occupancy. row_idx maps
+    compact rows to batch rows (None = rows ARE batch rows)."""
+    job_host, mem_left, cpus_left, gpus_left, slots_left, group_occ = state
+    N = job_host.shape[0]
+    H = mem_left.shape[0]
+    choice32 = choice.to(torch.int32)
+    if row_idx is None:
+        new_host = torch.where(accept, choice32, job_host)
+    else:
+        buf = torch.cat([job_host, job_host.new_full((1,), NO_HOST)])
+        buf[torch.where(accept, row_idx, N).long()] = choice32
+        new_host = buf[:N]
+    acc_host = torch.where(accept, choice, H).long()
+    used = _host_sums(acc_host, torch.where(
+        accept[:, None], torch.stack([jmem, jcpus, jgpus], -1), 0.0), H)
+    slots = torch.zeros(H + 1, dtype=torch.int32, device=accept.device)
+    slots.index_add_(0, acc_host, accept.to(torch.int32))
+    G = group_occ.shape[0]
+    flat = torch.where(accept & junique,
+                       torch.clamp(jgroup.long(), 0, G - 1) * H
+                       + torch.clamp(choice.long(), 0, H - 1), G * H)
+    occ = torch.cat([group_occ.reshape(-1), group_occ.new_zeros(1)])
+    occ.index_fill_(0, flat, True)      # no host-staged scalar, no sync
+    return (new_host, mem_left - used[:, 0], cpus_left - used[:, 1],
+            gpus_left - used[:, 2], slots_left - slots[:H],
+            occ[:G * H].view(G, H))
+
+
+def match_rounds(jobs: Jobs, hosts: Hosts, forbidden: torch.Tensor,
+                 rounds: int = 4, num_groups: int = 1,
+                 bonus: torch.Tensor | None = None,
+                 use_kernel: bool = False, dense_rounds: int = 6,
+                 spread: float = 0.2, head_exact: int = 256,
+                 dense_cap: int = 1024) -> MatchResult:
+    """Batched greedy approximation with an exact head (the reference's
+    `match_rounds`, same knobs and defaults): the first `head_exact`
+    jobs run the sequential scan, then one water-fill window round, up
+    to `rounds` gpu window rounds, up to `rounds - 1` pairing rounds and
+    up to max(dense_rounds, ceil(N / D) + 2) dense rounds over the
+    compact first D = min(dense_cap, N) candidates, hosts accepting the
+    feasible queue-order prefix of their bidders after every round. A
+    head job the exact scan refused is unservable this cycle and sits
+    out the window and pairing rounds.
+
+    use_kernel: the reference's `use_pallas` — the head is the
+    exact_scan kernel (single group, no bonus) and each dense round's
+    (D, H) score + argmax is the best_host kernel (single group). Off,
+    the head is `_scan_assign` and the dense round the reference's XLA
+    formula in plain PyTorch. A bonus forces spread to 0.
+    """
+    N = jobs.mem.shape[0]
+    H = hosts.mem.shape[0]
+    dev = hosts.mem.device
+    G = num_groups
+    kernel_dense = use_kernel and fused_match.best_host_ok(num_groups)
+
+    # water-fill serves cpu/mem-only jobs with no per-host exclusions;
+    # gpu jobs take the gpu window; constrained jobs, and all jobs under
+    # a locality bonus, only the dense rounds
+    unconstrained = jobs.valid & ~forbidden.any(dim=1)
+    plain = unconstrained & (jobs.gpus <= 0)
+    gpu_plain = unconstrained & (jobs.gpus > 0)
+    if bonus is not None:
+        plain = torch.zeros_like(plain)
+        gpu_plain = torch.zeros_like(gpu_plain)
+        spread = 0.0   # a real preference; noise would override it
+
+    def accept_bids(state, choice, bids):
+        accept = compute_accept(state, choice, bids, jobs.mem, jobs.cpus,
+                                jobs.gpus, jobs.group, jobs.unique_group, G)
+        return apply_accept(state, choice, accept, jobs.mem, jobs.cpus,
+                            jobs.gpus, jobs.group, jobs.unique_group, G)
+
+    def usable_hosts(mem_left, cpus_left, slots_left):
+        # non-gpu jobs never land on gpu hosts
+        return (hosts.valid & (slots_left > 0) & (hosts.cap_gpus <= 0)
+                & (mem_left > 1e-6) & (cpus_left > 1e-6))
+
+    def fill_order(usable, mem_left, cpus_left):
+        """Hosts by utilization descending (the cpuMemBinPacker's
+        direction), unusable last."""
+        util = _fitness(0.0, 0.0, mem_left, cpus_left, hosts.cap_mem,
+                        hosts.cap_cpus)
+        return torch.argsort(torch.where(usable, -util, BIG), stable=True)
+
+    def window_bid(state, unassigned, usable, lanes):
+        """Each unassigned job bids on the host whose cumulative-capacity
+        window covers its cumulative queue-order demand on every
+        (job demand, host room) lane."""
+        order = fill_order(usable, state[1], state[2])
+        o_usable = usable[order]
+        slot = None
+        for demand, room in lanes:
+            s = torch.searchsorted(
+                cumsum0(torch.where(o_usable, room[order], 0.0)),
+                cumsum0(torch.where(unassigned, demand, 0.0)), right=False)
+            slot = s if slot is None else torch.maximum(slot, s)
+        sc = torch.clamp(slot, 0, H - 1)
+        bids = unassigned & (slot < H) & o_usable[sc]
+        return accept_bids(state, order[sc], bids)
+
+    def window_round(state):
+        # round 0 — mass placement of the plain jobs
+        job_host, mem_left, cpus_left, _, slots_left, _ = state
+        unassigned = plain & (job_host == NO_HOST) & ~hopeless0
+        usable = usable_hosts(mem_left, cpus_left, slots_left)
+        return window_bid(state, unassigned, usable,
+                          [(jobs.mem, mem_left), (jobs.cpus, cpus_left)])
+
+    def gpu_window_round(state):
+        # mass placement of unconstrained gpu jobs: a third window
+        job_host, mem_left, cpus_left, gpus_left, slots_left, _ = state
+        unassigned = gpu_plain & (job_host == NO_HOST) & ~hopeless0
+        usable = (hosts.valid & (slots_left > 0) & (hosts.cap_gpus > 0)
+                  & (mem_left > 1e-6) & (cpus_left > 1e-6)
+                  & (gpus_left > 1e-6))
+        return window_bid(state, unassigned, usable,
+                          [(jobs.mem, mem_left), (jobs.cpus, cpus_left),
+                           (jobs.gpus, gpus_left)])
+
+    def pairing_round(state, round_i):
+        # stragglers: the k-th largest job of the queue-head window bids
+        # the k-th roomiest host, alternating the pairing resource
+        job_host, mem_left, cpus_left, _, slots_left, _ = state
+        unassigned = plain & (job_host == NO_HOST) & ~hopeless0
+        usable = usable_hosts(mem_left, cpus_left, slots_left)
+        n_usable = usable.sum()
+        upos = cumsum0(unassigned.to(torch.int32)) - 1
+        window = unassigned & (upos < n_usable)
+        jdemand, hroom = ((jobs.mem, mem_left) if round_i % 2 == 1
+                          else (jobs.cpus, cpus_left))
+        jrank_perm = torch.argsort(torch.where(window, -jdemand, BIG),
+                                   stable=True)
+        jrank = torch.empty(N, dtype=torch.int64, device=dev)
+        jrank[jrank_perm] = torch.arange(N, device=dev)
+        hperm = torch.argsort(torch.where(usable, -hroom, BIG), stable=True)
+        choice = hperm[torch.clamp(jrank, 0, H - 1)]
+        return accept_bids(state, choice, window)
+
+    D = min(dense_cap, N)
+    arD = torch.arange(D, device=dev)
+
+    def dense_round(state, hopeless):
+        # mop-up: the full score -> argmax -> accept round over the
+        # compact first D candidates in queue order (not yet proven
+        # infeasible: a failed dense argmax is a proof)
+        job_host, mem_left, cpus_left, gpus_left, slots_left, group_occ = \
+            state
+        candidates = jobs.valid & (job_host == NO_HOST) & ~hopeless
+        cpos = cumsum0(candidates.to(torch.int32)) - 1
+        slot = torch.where(candidates, torch.clamp(cpos, max=D), D)
+        src = scatter_sink(D, N, slot,
+                           torch.arange(N, dtype=torch.int32, device=dev))
+        in_use = src < N
+        srcc = torch.clamp(src, 0, N - 1).long()
+        c_mem, c_cpus, c_gpus = jobs.mem[srcc], jobs.cpus[srcc], \
+            jobs.gpus[srcc]
+        c_group = jobs.group[srcc]
+        c_unique = jobs.unique_group[srcc] & in_use
+        # fairness window within the prefix, sized to what the remaining
+        # capacity could plausibly absorb plus one slot per usable host
+        dense_usable = (hosts.valid & (slots_left > 0)
+                        & ((mem_left > 1e-6) | (cpus_left > 1e-6)
+                           | (gpus_left > 1e-6)))
+        K = dense_usable.sum(dtype=torch.int32)
+        n_cand = torch.clamp(in_use.sum(dtype=torch.int32), min=1)
+        mean_mem = torch.clamp(torch.where(in_use, c_mem, 0.0).sum()
+                               / n_cand, min=1e-6)
+        mean_cpus = torch.clamp(torch.where(in_use, c_cpus, 0.0).sum()
+                                / n_cand, min=1e-6)
+        absorb = torch.where(dense_usable,
+                             torch.minimum(mem_left / mean_mem,
+                                           cpus_left / mean_cpus),
+                             0.0).sum()
+        W = K + torch.clamp(absorb, max=float(N)).to(torch.int32)
+        window = in_use & (arD < W)
+
+        c_forb = forbidden[srcc] | ~in_use[:, None]
+        c_bonus = None if bonus is None else bonus[srcc]
+        if kernel_dense:
+            jp = fused_match.pack_jobs(c_mem, c_cpus, c_gpus, in_use,
+                                       c_unique)
+            hp = fused_match.pack_hosts(
+                mem_left, cpus_left, gpus_left, hosts.cap_mem,
+                hosts.cap_cpus, hosts.cap_gpus, slots_left, hosts.valid,
+                group_occ[0])
+            best_fit, best = fused_match.best_host(jp, hp, c_forb, c_bonus,
+                                                   spread=spread)
+            choice = torch.clamp(best.long(), 0, H - 1)
+            has_feasible = best_fit > -0.5
+        else:
+            ok = _feasible(c_mem[:, None], c_cpus[:, None], c_gpus[:, None],
+                           mem_left[None, :], cpus_left[None, :],
+                           gpus_left[None, :], hosts.cap_gpus[None, :],
+                           hosts.valid[None, :], slots_left[None, :],
+                           c_forb)
+            ok = ok & in_use[:, None] & ~(
+                c_unique[:, None]
+                & group_occ[torch.clamp(c_group.long(), 0, G - 1)])
+            fit = _fitness(c_mem[:, None], c_cpus[:, None],
+                           mem_left[None, :], cpus_left[None, :],
+                           hosts.cap_mem[None, :], hosts.cap_cpus[None, :])
+            if c_bonus is not None:
+                fit = fit + c_bonus
+            # per-(job, host) jitter keyed on the compact slot, as in the
+            # kernel: spreads bids within `spread` of each job's best
+            fit = torch.where(ok, fit + fused_match.jitter(D, H, spread,
+                                                           dev), -1.0)
+            choice = torch.argmax(fit, dim=1)
+            has_feasible = fit.gather(1, choice[:, None])[:, 0] > -0.5
+        hopeless = torch.cat([hopeless, hopeless.new_zeros(1)])
+        hopeless.index_fill_(
+            0, torch.where(in_use & ~has_feasible, src, N).long(), True)
+        hopeless = hopeless[:N]
+        bids = window & has_feasible
+        accept = compute_accept(state, choice, bids, c_mem, c_cpus, c_gpus,
+                                c_group, c_unique, G)
+        state = apply_accept(state, choice, accept, c_mem, c_cpus, c_gpus,
+                             c_group, c_unique, G, row_idx=src)
+        return state, hopeless
+
+    state = (torch.full((N,), NO_HOST, dtype=torch.int32, device=dev),
+             hosts.mem, hosts.cpus, hosts.gpus, hosts.task_slots,
+             torch.zeros((G, H), dtype=torch.bool, device=dev))
+    hopeless0 = torch.zeros(N, dtype=torch.bool, device=dev)
+    S = min(head_exact, N)
+    if S > 0:
+        # exact sequential head: no inversion at the first S positions
+        head = Jobs(*(f[:S] for f in jobs))
+        carry, head_hosts = _scan_core(
+            head, hosts, forbidden[:S], None if bonus is None else bonus[:S],
+            G, state[1:], use_kernel=use_kernel, bonus_zero=bonus is None)
+        head_hosts = head_hosts.to(torch.int32)
+        state = (torch.cat([head_hosts, state[0][S:]]), *carry)
+        hopeless0[:S] = head.valid & (head_hosts == NO_HOST)
+
+    def pending(mask, st, hopeless):
+        # the while-loop predicate: one device -> host read
+        return bool((mask & (st[0] == NO_HOST) & ~hopeless).any())
+
+    if rounds > 0:
+        state = window_round(state)
+        i = 0
+        while i < rounds and pending(gpu_plain, state, hopeless0):
+            state = gpu_window_round(state)
+            i += 1
+    if rounds > 1:
+        i = 1
+        while i < rounds and pending(plain, state, hopeless0):
+            state = pairing_round(state, i)
+            i += 1
+    if dense_rounds > 0:
+        # non-plain jobs place only through the head and these rounds,
+        # each resolving at most D candidates: cover ceil(N / D) passes
+        max_dense = max(dense_rounds, -(-N // D) + 2)
+        hopeless = hopeless0
+        i = 0
+        while i < max_dense and pending(jobs.valid, state, hopeless):
+            state, hopeless = dense_round(state, hopeless)
+            i += 1
+    job_host, mem_left, cpus_left, gpus_left, slots_left, _ = state
     return MatchResult(job_host, mem_left, cpus_left, gpus_left, slots_left)
 
 

@@ -12,10 +12,11 @@ import torch
 
 
 def segment_starts(seg_ids: torch.Tensor) -> torch.Tensor:
-    """Boolean mask marking the first element of each contiguous segment."""
+    """Boolean mask marking the first element of each contiguous segment.
+    (`fill_`, not `starts[0] = True`: a Python scalar stored into a CUDA
+    tensor is staged on the host and synchronises the stream.)"""
     starts = seg_ids != torch.roll(seg_ids, 1)
-    if starts.shape[0]:
-        starts[0] = True
+    starts[:1].fill_(True)
     return starts
 
 
@@ -48,6 +49,28 @@ def segment_cumsum(values: torch.Tensor, seg_ids: torch.Tensor) -> torch.Tensor:
     start_idx = segment_start_index(segment_starts(seg_ids))
     base = total[start_idx] - values[start_idx]
     return total - base
+
+
+def segment_sum_scan(values: torch.Tensor,
+                     seg_ids: torch.Tensor) -> torch.Tensor:
+    """Inclusive segmented sum over run-contiguous `seg_ids`, added in
+    one fixed order on every device: a doubling scan in which each step
+    adds to every row the partial sum `off` rows back when that row lies
+    in the same segment (off = 1, 2, 4, ...; log2 n steps of elementwise
+    ops). The last row of each segment holds the segment's sum. Unlike
+    `segment_cumsum` it does not cancel across segments, and it does not
+    rest on a float cumsum, which PyTorch does not order
+    deterministically on CUDA. The leading axis is the scan axis."""
+    n = values.shape[0]
+    off = 1
+    while off < n:
+        same = seg_ids[off:] == seg_ids[:-off]
+        if values.dim() > 1:
+            same = same[:, None]
+        values = torch.cat([values[:off], torch.where(
+            same, values[off:] + values[:-off], values[off:])])
+        off *= 2
+    return values
 
 
 def segment_rank(seg_ids: torch.Tensor) -> torch.Tensor:

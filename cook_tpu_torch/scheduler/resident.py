@@ -126,7 +126,7 @@ SCATTERS = {"pend": scatter_pend, "run": scatter_run, "forb": scatter_forb,
 def device_cycle(state, deltas, qm, qc, qn, considerable_limit, now_s, *,
                  num_considerable, sequential=True, num_groups=1,
                  dru_mode="default", use_kernel=True, with_bonus=False,
-                 with_est=False, matcher=None):
+                 with_est=False, matcher=None, match_kw=None):
     """One resident cycle (the counterpart of `_device_cycle`): apply the
     packed delta bundle, rank + filter + match, invalidate matched rows
     and write the match result back as the host state — all in place
@@ -171,13 +171,13 @@ def device_cycle(state, deltas, qm, qc, qn, considerable_limit, now_s, *,
         pend_est_s=p["est_s"] if with_est else None,
         host_death_s=h["death_s"] if with_est else None,
         now_s=now_s if with_est else None,
-        matcher=matcher)
+        matcher=matcher, match_kw=match_kw)
     Pcap = p["valid"].shape[0]
     H = h["ports"].shape[0]
     # matched rows leave the pending set on the device, immediately
     matched = (res.cons_idx >= 0) & (res.cons_host >= 0)
-    state["pend"]["valid"][torch.where(matched, res.cons_idx, Pcap).long()] \
-        = False
+    state["pend"]["valid"].index_fill_(
+        0, torch.where(matched, res.cons_idx, Pcap).long(), False)
     # approximate in-kernel port depletion for matched jobs (exact port
     # numbers stay host-side)
     want = torch.where(
@@ -414,14 +414,16 @@ class ResidentState:
     def dispatch(self, bundle, qm, qc, qn, considerable_limit: int,
                  now_s: int, num_considerable: int, num_groups: int = 1,
                  dru_mode: str = "default", use_kernel: bool = True,
-                 matcher=None):
-        """Run one `device_cycle` on the resident state."""
+                 matcher=None, sequential: bool = True, match_kw=None):
+        """Run one `device_cycle` on the resident state: the sequential
+        match, or `match_rounds` with `match_kw` when `sequential` is
+        False."""
         return device_cycle(
             self.state, bundle, qm, qc, qn, int(considerable_limit),
             np.int32(now_s), num_considerable=num_considerable,
-            sequential=True, num_groups=num_groups, dru_mode=dru_mode,
+            sequential=sequential, num_groups=num_groups, dru_mode=dru_mode,
             use_kernel=use_kernel, with_bonus=self.with_bonus,
-            with_est=self.with_est, matcher=matcher)
+            with_est=self.with_est, matcher=matcher, match_kw=match_kw)
 
     def readback(self, out):
         """(mat_idx, mat_host) numpy i32 of the matched prefix: one sync

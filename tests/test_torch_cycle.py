@@ -195,7 +195,73 @@ def test_rank_and_match_equals_jax(case):
         assert int(got.n_considerable) == 40
 
 
+BATCHED = ("mat_idx", "mat_host", "why_code", "why_idx", "cons_idx",
+           "cons_host", "n_matched", "job_host", "slots_left")
+
+
+def compare_batched(ref, got, dyadic):
+    """The batched matcher's outputs: integer fields exact; host lanes
+    exact on dyadic inputs, else within rtol 1e-5, atol 1e-5 (the port
+    adds each host's accepted demands in a fixed doubling order, XLA in
+    row order)."""
+    for f in BATCHED:
+        np.testing.assert_array_equal(
+            getattr(got, f).numpy(), np.asarray(getattr(ref, f)), err_msg=f)
+    for f in LANES:
+        g, r = getattr(got, f).numpy(), np.asarray(getattr(ref, f))
+        if dyadic:
+            np.testing.assert_array_equal(g, r, err_msg=f)
+        else:
+            np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-5,
+                                       err_msg=f)
+
+
 def test_match_rounds_not_ported():
-    args, _ = entry.cycle_args(device="cpu")
-    with pytest.raises(NotImplementedError, match="match_rounds"):
-        tcycle.rank_and_match(*args, num_considerable=64, sequential=False)
+    """sequential=False runs the ported match_rounds (it used to raise
+    NotImplementedError) and equals the reference's on the graft args."""
+    args = graft._cycle_args()
+    ref = jcycle.rank_and_match(*args, num_considerable=64,
+                                sequential=False)
+    got = tcycle.rank_and_match(*convert.cycle_args(args, "cpu"),
+                                num_considerable=64, sequential=False)
+    compare_batched(ref, got, dyadic=False)
+    assert int(got.n_matched) > 0
+
+
+@pytest.mark.parametrize("case", ["dyadic", "sparse_bonus", "groups", "gpu"])
+def test_rank_and_match_batched_equals_jax(case):
+    """rank_and_match(sequential=False, match_kw=...) against the
+    reference's, constrained, ports and estimated-completion lanes on."""
+    C = 128
+    arrays, kw = _variant(case)
+    rng = np.random.default_rng(29)
+    call_kw = {"match_kw": (("head_exact", 32), ("dense_rounds", 4))}
+    if case == "sparse_bonus":
+        arrays[20] = _sparse(arrays[20], rng)
+        P, H = arrays[8].shape[0], arrays[19]["mem"].shape[0]
+        brows = (rng.integers(0, 4, (16, H)) / 8).astype(np.float32)
+        bslot = np.where(rng.random(P) < 0.2, rng.integers(0, 16, P),
+                         -1).astype(np.int32)
+        call_kw["bonus"] = (brows, bslot)
+    if case == "groups":
+        P = arrays[8].shape[0]
+        grp = rng.integers(-1, 4, P).astype(np.int32)
+        arrays[17] = grp
+        arrays[18] = (grp >= 0) & (rng.random(P) < 0.8)
+        call_kw["num_groups"] = 4
+    if case == "gpu":
+        call_kw["dru_mode"] = "gpu"
+    jkw = {k: (tuple(jnp.asarray(x) for x in v) if isinstance(v, tuple)
+               and k != "match_kw" else jnp.asarray(v)
+               if isinstance(v, np.ndarray) else v)
+           for k, v in {**kw, **call_kw}.items()}
+    tkw = {k: (convert.tensors(v, "cpu") if isinstance(v, tuple)
+               and k != "match_kw" else convert.tensor(v, "cpu")
+               if isinstance(v, np.ndarray) else v)
+           for k, v in {**kw, **call_kw}.items()}
+    ref = jcycle.rank_and_match(*_jax_args(arrays), num_considerable=C,
+                                sequential=False, **jkw)
+    got = tcycle.rank_and_match(*_torch_args(arrays), num_considerable=C,
+                                sequential=False, use_kernel=False, **tkw)
+    compare_batched(ref, got, dyadic=False)
+    assert int(got.n_matched) > 0

@@ -81,6 +81,93 @@ def test_device_cycle_equals_jax_three_cycles():
     assert fused_match.LAUNCHES["exact_scan"] == 0   # CPU: plain version
 
 
+@pytest.mark.parametrize("use_kernel,head", [(False, 16), (True, 0)])
+def test_device_cycle_batched_equals_jax(use_kernel, head):
+    """device_cycle(sequential=False) against the reference's
+    `_device_cycle(sequential=False, use_pallas=False)` over three
+    chained cycles. With use_kernel the port's dense rounds run
+    best_host's plain version, the reference its XLA formula (no head,
+    so the head's reciprocal/division forms never meet). mat_idx,
+    mat_host, why_code and every integer state lane exact; f32 host lanes
+    within rtol 1e-5, atol 1e-5 (per-host sums added in another order)."""
+    w = entry.resident_workload(R=400, P=3000, H=160, U=20, C=128,
+                                forb_cap=512, constrained=0.1, seed=8,
+                                device="cpu")
+    rs = w.rs
+    jstate = jax.device_put(tres.state_to_numpy(rs.state))
+    qm, qc, qn = (np.asarray(q.numpy()) for q in (w.qm, w.qc, w.qn))
+    match_kw = (("head_exact", head),)
+    fused_match.reset_launches()
+    for cyc in range(3):
+        spills, bundle = rs.pack(rs.drain())
+        for kind, arrays in spills:
+            jstate = J_SCATTERS[kind](jstate, *arrays)
+            tres.SCATTERS[kind](rs.state, *convert.tensors(arrays, "cpu"))
+        jstate, jout = jres._device_cycle(
+            jstate, bundle, qm, qc, qn, np.int32(w.C), np.int32(w.now_s),
+            num_considerable=w.C, sequential=False, num_groups=1,
+            dru_mode="default", use_pallas=False, match_kw=match_kw,
+            with_bonus=False, with_est=True)
+        tout = rs.dispatch(convert.tensors(bundle, "cpu"), w.qm, w.qc, w.qn,
+                           w.C, w.now_s, w.C, use_kernel=use_kernel,
+                           sequential=False, match_kw=match_kw)
+        for name, r, g in zip(OUT_NAMES, jout, tout):
+            if name == "why_amt":
+                np.testing.assert_allclose(g.numpy(), np.asarray(r),
+                                           rtol=1e-6, atol=1e-3)
+            else:
+                np.testing.assert_array_equal(
+                    g.numpy(), np.asarray(r), err_msg=f"cycle {cyc} {name}")
+        got = tres.state_to_numpy(rs.state)
+        for table in ("pend", "run", "host"):
+            for k, v in got[table].items():
+                ref = np.asarray(jstate[table][k])
+                if v.dtype == np.float32 and table == "host":
+                    np.testing.assert_allclose(v, ref, rtol=1e-5, atol=1e-5,
+                                               err_msg=f"host.{k}")
+                else:
+                    np.testing.assert_array_equal(v, ref,
+                                                  err_msg=f"{table}.{k}")
+        mat_idx, mat_host = rs.readback(tout)
+        assert len(mat_idx) == int(tout[3]) > 0
+        assert not rs.state["pend"]["valid"][torch.from_numpy(
+            mat_idx).long()].any()
+        w.advance(mat_idx, mat_host)
+    assert fused_match.LAUNCHES["best_host"] == 0   # CPU: plain version
+
+
+def test_workload_batched_sizing_and_choice():
+    """C = 8192 sizes the pool as the reference's rebuild does and takes
+    the coordinator's batched matcher; C = 1024 stays sequential."""
+    assert entry.sequential_for(2048) and not entry.sequential_for(2049)
+    assert entry.HEAD_LADDER == (0, 64, 128, 256)
+    assert entry.HEAD_START == 256
+    from cook_tpu.scheduler.coordinator import AdaptiveHead, SchedulerConfig
+    assert AdaptiveHead.LADDER == entry.HEAD_LADDER
+    assert AdaptiveHead().head == entry.HEAD_START
+    assert SchedulerConfig().sequential_match_threshold == \
+        entry.SEQUENTIAL_MATCH_THRESHOLD
+    w = entry.resident_workload(R=10_000, P=100_000, H=10_000, U=50,
+                                C=8192, forb_cap=64, constrained=0.0,
+                                device="cpu")
+    assert (w.rs.Pcap, w.rs.Rcap, w.rs.Hcap) == (262144, 32768, 16384)
+
+
+def test_workload_batched_cycles_and_invariants():
+    w = entry.resident_workload(R=300, P=4000, H=128, U=10, C=2560,
+                                forb_cap=256, seed=2, device="cpu")
+    total = 0
+    for _ in range(2):
+        out, mat_idx, mat_host = w.cycle(match_kw={"head_exact": 64})
+        total += len(mat_idx)
+        h = w.rs.state["host"]
+        for lane in ("mem", "cpus", "gpus"):
+            assert (h[lane][:-1] >= -1e-6).all(), lane
+        assert (h["task_slots"][:-1] >= 0).all()
+        assert (mat_host >= 0).all() and (mat_host < 128).all()
+    assert total > 0
+
+
 def test_workload_cycles_and_invariants():
     w = entry.resident_workload(R=300, P=2000, H=128, U=10, C=64,
                                 forb_cap=256, seed=1, device="cpu")

@@ -55,6 +55,31 @@ def test_segment_ops_equal_jax(seed):
     assert tseg.segment_rank(_t(seg)).dtype == torch.int32
 
 
+@pytest.mark.parametrize("n,nseg,k", [(1, 1, 1), (7, 3, 2), (200, 12, 2),
+                                      (1000, 40, 3), (4096, 1, 1)])
+def test_segment_sum_scan_is_a_segmented_inclusive_sum(n, nseg, k):
+    """segment_sum_scan against JAX's segment_cumsum on dyadic inputs
+    (exact in every order), and within rtol 1e-6 of f64 segmented sums
+    otherwise: its error is a few ulps of the segment's own sum (at most
+    ceil(log2 n) roundings of positive terms), not of the global total."""
+    rng = np.random.default_rng(n)
+    seg = np.sort(rng.integers(0, nseg, n)).astype(np.int64)
+    vals = rng.uniform(0, 5, (n, k)).astype(np.float32)
+    if k == 1:
+        vals = vals[:, 0]
+    dy = (vals * 8).round() / 8
+    np.testing.assert_array_equal(
+        _n(tseg.segment_sum_scan(_t(dy), _t(seg))),
+        _n(jseg.segment_cumsum(jnp.asarray(dy), jnp.asarray(seg))))
+    ref = np.zeros(vals.shape, np.float64)
+    for s in np.unique(seg):
+        m = seg == s
+        ref[m] = np.cumsum(vals[m].astype(np.float64), axis=0)
+    got = tseg.segment_sum_scan(_t(vals), _t(seg))
+    assert got.dtype == torch.float32 and got.shape == vals.shape
+    np.testing.assert_allclose(_n(got), ref, rtol=1e-6)
+
+
 def _rank_inputs(seed, n=400, U=9, dyadic=False):
     rng = np.random.default_rng(seed)
     if dyadic:
@@ -105,6 +130,32 @@ def test_dru_rank_equals_jax(seed, dyadic):
     got = tdru.dru_rank(*[_t(a) for a in args])
     _check_ranked(ref, got, exact_dru=dyadic, total=d["mem"].sum(),
                   share=min(d["ms"].min(), d["cs"].min()))
+
+
+def test_dru_rank_at_scale_differs_only_at_near_ties():
+    """At the size of a real backlog (22,000 tasks of 100 users, the
+    resident workload's shares) the differently associated f32 cumsum
+    flips the queue order of jobs whose scores tie to within a few ulps
+    of the global totals: the port's order is then still a sort of the
+    reference's scores up to that tolerance, and vice versa."""
+    rng = np.random.default_rng(12)
+    n, U = 22_000, 100
+    user = rng.integers(0, U, n).astype(np.int32)
+    mem = rng.uniform(1, 10, n).astype(np.float32)
+    cpus = rng.uniform(0.5, 4, n).astype(np.float32)
+    args = [user, mem, cpus, rng.integers(0, 3, n).astype(np.int32),
+            rng.integers(0, 200, n).astype(np.int32), rng.random(n) < 0.95,
+            np.full(n, 1000.0, np.float32), np.full(n, 200.0, np.float32)]
+    ref = jdru.dru_rank(*[jnp.asarray(a) for a in args])
+    got = tdru.dru_rank(*[_t(a) for a in args])
+    tol = 8 * max(np.spacing(np.float32(mem.sum())) / 1000.0,
+                  np.spacing(np.float32(cpus.sum())) / 200.0)
+    rd, gd = _n(ref.dru), _n(got.dru)
+    valid = args[5]
+    np.testing.assert_allclose(gd[valid], rd[valid], rtol=0, atol=tol)
+    for order, scores in ((_n(got.order), rd), (_n(ref.order), gd)):
+        s = scores[order][valid[order]]
+        assert (np.maximum.accumulate(s) - s).max() <= tol
 
 
 @pytest.mark.parametrize("seed,dyadic", [(3, True), (4, False)])
