@@ -5,26 +5,35 @@
 
 1. Prints the card's name and power limit (nvidia-smi) and exits non-zero
    when torch sees no CUDA device.
-2. Builds the CUDA kernels from csrc/ (nvcc, first use, one process per
-   source, all started together) and prints the build seconds.
+2. Builds the three CUDA kernels from csrc/ (nvcc, first use, one
+   process per source, all started together) and prints the build
+   seconds and ptxas' register/shared-memory lines.
 3. Holds each kernel against its plain PyTorch version on the card:
-   - exact_scan at S=1024 jobs x H=16384 hosts (the sequential path's
-     shape) with a mixed workload, and three adversarial cases (all
-     hosts identical, all jobs infeasible, H = 16411). job_host must be
-     equal and the (16, H) host stack bit-equal.
+   - exact_scan (a cluster of 16 CTAs, or 8) at S=1024 jobs x H=16384
+     hosts (the sequential path's shape) with a mixed workload; mixed
+     problems at S in {8, 256} x H in {1, 33, cluster x 32, 100,000
+     (beyond the 65,536 on-chip hosts)}; one host taking all 256 jobs
+     (each step must see the last step's depletion, made by one CTA);
+     256 unique-group jobs against 30% occupied hosts; all hosts
+     identical, all jobs infeasible, H = 16411 (plain mask loads).
+     job_host must be equal and the (16, H) host stack bit-equal.
+   - blocked_cumsum (the port's f32 prefix sum in XLA-CPU's
+     association; it replaces no TPU kernel) at (262144, 2), (131072, 2)
+     and (8192,): bit-equal to its plain version and across two runs.
    - best_host at D=1024 rows x H=16384 hosts (the batched path's dense
      prefix) on the same mix: no bonus at spread 0.2 and 0, and a
      U(0, 0.5) bonus at spread 0; adversarial: all hosts identical (the
      lowest index wins across every block), all rows infeasible,
      H = 16411, N = 200. best_host must be equal and best_fit bit-equal.
-   Both kernels round every f32 op like their plain versions (no FMA
+   All kernels round every f32 op like their plain versions (no FMA
    contraction, IEEE division).
 4. The sequential path: a device-resident pool of 100,000 pending x
    10,000 hosts (Pcap 131072, Hcap 16384), 10,000 running, 500 users,
    C=1024 considered per cycle (the coordinator's sequential matcher),
    2% of pending jobs constrained, the ports and estimated-completion
    lanes on, no bonus. CYCLES cycles through `device_cycle`; the
-   exact_scan counter must rise by one per cycle. Checks: jobs matched,
+   exact_scan counter must rise by one per cycle and blocked_cumsum's
+   at least once per cycle (the rank). Checks: jobs matched,
    no host lane below -eps, matched rows invalid afterwards. The first
    REPLAY cycles are replayed from the same seed through the same entry
    point with the kernel wrappers routed to their plain versions;
@@ -33,20 +42,24 @@
    (BASELINE's headline cycle, bench.py `bench_cycle`; Pcap 262144,
    Rcap 32768, Hcap 16384), so the coordinator's choice is match_rounds
    with its 256-job exact head. BATCHED cycles with the kernels on; each
-   must launch exact_scan once (the head) and best_host at least once
-   (the dense rounds), keep every host lane >= -1e-6 and slot count
+   must launch exact_scan once (the head), best_host at least once
+   (the dense rounds) and blocked_cumsum at least once (the rank, the
+   window rounds, the accept sums), keep every host lane >= -1e-6 and
+   slot count
    >= 0, leave no matched row valid, and show no head-of-line inversion
    at queue positions < head_exact (the host-side audit over the first
    AUDIT_WINDOW positions, whose whole count is printed). The first
    BATCHED_REPLAY cycles are replayed the same way, match_rounds then
-   running both kernels' plain versions: mat_idx, mat_host and why_code
+   running every kernel's plain version: mat_idx, mat_host and why_code
    must be equal and no kernel counter may move.
 6. Prints timings as JSON: per cycle CUDA events from the delta upload
    to the prefix readback, and the host clock around the whole cycle
    (including the workload's own bookkeeping); each kernel alone by CUDA
-   events; all beside the card's name and power limit. Then one line
-   {"kernels": [...]}, the nvidia-smi line, and last
-   {"ok": true, "device": {...}}.
+   events, exact_scan also at its dependency floor (S=1024 with one warp
+   of hosts per CTA, H = cluster x 32: `exact_scan_chain_floor_ms`) and
+   blocked_cumsum beside torch.cumsum; all beside the card's name and
+   power limit. Then one line {"kernels": [...]} (launches by path), the
+   nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Imports torch, numpy and cook_tpu_torch only. Any failure exits non-zero
 before the last line.
@@ -86,6 +99,8 @@ OPS_PER_PAIR = 17
 BH_OPS_HOST, BH_OPS_PAIR, BH_OPS_FIT, BH_OPS_JITTER, BH_OPS_BONUS = \
     5, 8, 8, 13, 1
 BH_HOST_ROWS = 9
+# blocked_cumsum's timed shape: the batched rank's (Pcap, 2)
+CUMSUM_SHAPES = ((262144, 2), (131072, 2), (8192,))
 
 
 def fail(msg):
@@ -202,19 +217,83 @@ def identical_hosts(S, H, device):
     return jp, hp, forb
 
 
-def adversarial(device):
-    """(label, jp, hp, forb) of the three small exact_scan cases."""
+def adversarial(device, cluster):
+    """(label, jp, hp, forb) of the exact_scan edge cases: mixed problems
+    at S in {8, 256} x H in {1, 33, cluster x 32 (one warp of hosts per
+    CTA), 100,000 (beyond the on-chip capacity)}; one host taking every
+    job; unique jobs against occupied hosts; all hosts identical; all
+    jobs infeasible; H = 16411 (not a multiple of 16: plain mask loads)."""
     import torch
+    from cook_tpu_torch.ops import fused_match as fm
 
     rng = np.random.default_rng(7)
-    out = [("all_tie", *identical_hosts(64, 4096, device))]
+    out = []
+    for S in (8, 256):
+        for H in (1, 33, cluster * 32, 100_000):
+            out.append((f"s{S}_h{H}", *scan_problem(rng, S, H, device)))
+    # host 9000 starts fuller than the rest, so the bin-packer sends it
+    # all 256 jobs: its CTA's depletion must reach every CTA each step
+    jp, hp, forb = identical_hosts(256, H_MAIN, device)
+    hp[fm.H_MEM].fill_(1000.0)
+    hp[fm.H_CAP_MEM].fill_(1000.0)
+    hp[fm.H_MEM, 9000] = 600.0
+    hp[fm.H_CPUS].fill_(100.0)
+    hp[fm.H_CAP_CPUS].fill_(100.0)
+    hp[fm.H_SLOTS].fill_(1000.0)
+    jp[:, fm.J_MEM] = 1.5
+    jp[:, fm.J_CPUS] = 0.25
+    out.append(("one_host", jp, hp, forb))
+    jp, hp, forb = scan_problem(rng, 256, H_MAIN, device)
+    jp[:, fm.J_UNIQUE] = 1.0
+    hp[fm.H_OCC0] = torch.from_numpy(
+        (rng.random(H_MAIN) < 0.3).astype(np.float32)).to(device)
+    out.append(("unique_occ0", jp, hp, forb))
+    out.append(("all_tie", *identical_hosts(64, 4096, device)))
     jp2, hp2, _ = scan_problem(rng, 32, 2048, device)
     out.append(("all_infeasible", jp2, hp2,
                 torch.ones((32, 2048), dtype=torch.uint8, device=device)))
-    # H not a multiple of 1024 (nor of 32)
+    # H not a multiple of 1024 (nor of 16)
     jp3, hp3, forb3 = scan_problem(rng, 200, 16411, device)
     out.append(("h16411", jp3, hp3, forb3))
     return out
+
+
+def check_adversarial(label, jp, hp, jh):
+    """The expected outcome of the cases with one (job_host on the
+    card, already equal to the plain version's)."""
+    import torch
+    from cook_tpu_torch.ops import fused_match as fm
+
+    if label == "all_tie":
+        want = torch.arange(jp.shape[0], device=jh.device) // 5
+        if not torch.equal(jh.long(), want):
+            fail("all_tie: lowest index did not win the ties")
+    if label == "all_infeasible" and bool((jh >= 0).any()):
+        fail("all_infeasible: a job was assigned")
+    if label == "one_host" and not bool((jh == 9000).all()):
+        fail("one_host: a job left host 9000")
+    if label == "unique_occ0":
+        got = jh[jh >= 0].long()
+        if len(got) < 10 or bool((hp[fm.H_OCC0][got] > 0).any()) \
+                or len(torch.unique(got)) != len(got):
+            fail("unique_occ0: a unique job shared or took an occupied host")
+
+
+def check_cumsum(x, label):
+    """blocked_cumsum vs its plain version, bit for bit, and run to run."""
+    import torch
+    from cook_tpu_torch.ops import segments as seg
+
+    a, b = seg.blocked_cumsum(x), seg.blocked_cumsum(x)
+    p = seg.blocked_cumsum_plain(x)
+    torch.cuda.synchronize()
+    bits = lambda t: t.view(torch.int32)
+    if not torch.equal(bits(a), bits(p)):
+        fail(f"blocked_cumsum {label}: not bit-equal to plain (max abs "
+             f"diff {float((a - p).abs().max())})")
+    if not torch.equal(bits(a), bits(b)):
+        fail(f"blocked_cumsum {label}: two runs differ")
+    return float((a - p).abs().max())
 
 
 def bound(bytes_moved, ops):
@@ -227,15 +306,17 @@ def bound(bytes_moved, ops):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route both kernel wrappers to their plain versions (replay only)."""
+    """Route every kernel wrapper to its plain version (replay only)."""
     from cook_tpu_torch.ops import fused_match as fm
+    from cook_tpu_torch.ops import segments as seg
 
-    saved = fm.exact_scan, fm.best_host
+    saved = fm.exact_scan, fm.best_host, seg.blocked_cumsum
     fm.exact_scan, fm.best_host = fm.exact_scan_plain, fm.best_host_plain
+    seg.blocked_cumsum = seg.blocked_cumsum_plain
     try:
         yield
     finally:
-        fm.exact_scan, fm.best_host = saved
+        fm.exact_scan, fm.best_host, seg.blocked_cumsum = saved
 
 
 def head_window_inversions(w, out, now_s):
@@ -338,31 +419,58 @@ def main():
     dev = torch.device("cuda", 0)
 
     # ---- 2. exact_scan vs plain on the card --------------------------------
+    cluster = fm.exact_scan_cluster()
+    print(json.dumps({"exact_scan_cluster_ctas": cluster}), flush=True)
     rng = np.random.default_rng(0)
     jp, hp, forb = scan_problem(rng, S_MAIN, H_MAIN, dev)
     max_err, n_assigned = check_kernel(jp, hp, forb, "mixed 1024x16384")
     if n_assigned == 0:
         fail("mixed exact_scan assigned no job")
-    for label, a, b, c in adversarial(dev):
+    cases = {}
+    for label, a, b, c in adversarial(dev, cluster):
         err, n = check_kernel(a, b, c, label)
         max_err = max(max_err, err)
-        if label == "all_tie":
-            jh, _ = fm.exact_scan(a, b, c)
-            want = torch.arange(a.shape[0], device=dev) // 5
-            if not torch.equal(jh.long(), want):
-                fail("all_tie: lowest index did not win the ties")
-        if label == "all_infeasible" and n != 0:
-            fail("all_infeasible: a job was assigned")
+        cases[label] = n
+        check_adversarial(label, a, b, fm.exact_scan(a, b, c)[0])
     print(json.dumps({"exact_scan_vs_plain": "equal", "max_abs_err": max_err,
-                      "mixed_assigned": n_assigned}), flush=True)
+                      "mixed_assigned": n_assigned,
+                      "adversarial_assigned": cases}), flush=True)
     kernel_ms = cuda_ms(lambda: fm.exact_scan(jp, hp, forb), 20)
     plain_ms = cuda_ms(lambda: fm.exact_scan_plain(jp, hp, forb), 2)
     jh_, fb_ = jp[:HEAD_START].contiguous(), forb[:HEAD_START].contiguous()
     head_ms = cuda_ms(lambda: fm.exact_scan(jh_, hp, fb_), 20)
+    # the dependency floor: the same S steps with one warp of hosts per CTA
+    jf, hf, ff = scan_problem(np.random.default_rng(4), S_MAIN, cluster * 32,
+                              dev)
+    check_kernel(jf, hf, ff, "chain floor")
+    floor_ms = cuda_ms(lambda: fm.exact_scan(jf, hf, ff), 20)
     S, H = S_MAIN, H_MAIN
     scan_bound_ms, scan_bound_by = bound(
         S * 8 * 4 + 16 * H * 4 + S * H + S * 4 + 16 * H * 4,
         S * H * OPS_PER_PAIR)
+
+    # ---- 2b. blocked_cumsum vs plain on the card ---------------------------
+    from cook_tpu_torch.ops import segments as seg
+    cs_err = 0.0
+    xs = {}
+    for shape in CUMSUM_SHAPES:
+        x = torch.from_numpy((10.0 ** rng.uniform(-3, 3, shape)
+                              * rng.choice([-1.0, 1.0], shape))
+                             .astype(np.float32)).to(dev)
+        cs_err = max(cs_err, check_cumsum(x, str(shape)))
+        xs[shape] = x
+    print(json.dumps({"blocked_cumsum_vs_plain": "bit-equal, run to run",
+                      "shapes": [list(k) for k in CUMSUM_SHAPES]}),
+          flush=True)
+    x = xs[CUMSUM_SHAPES[0]]
+    cs_ms = cuda_ms(lambda: seg.blocked_cumsum(x), 50)
+    cs_plain_ms = cuda_ms(lambda: seg.blocked_cumsum_plain(x), 5)
+    cs_lib_ms = cuda_ms(lambda: torch.cumsum(x, dim=0), 50)
+    cs_lib_inner_ms = cuda_ms(
+        lambda: torch.cumsum(x.t().contiguous(), dim=1), 50)
+    # each input float read once, each output float written once; one
+    # addition per element (plus n/15 for the levels above)
+    cs_bound_ms, cs_bound_by = bound(2 * x.numel() * 4, x.numel() * 16 // 15)
 
     # ---- 3. best_host vs plain on the card ---------------------------------
     D = D_MAIN
@@ -430,7 +538,8 @@ def main():
         if c < REPLAY:
             recorded.append((mat_idx, mat_host, out[8].cpu().numpy()))
     seq_launches = dict(fm.LAUNCHES)
-    if seq_launches != {"exact_scan": CYCLES, "best_host": 0}:
+    if seq_launches["exact_scan"] != CYCLES or seq_launches["best_host"] \
+            or seq_launches["blocked_cumsum"] < CYCLES:
         fail(f"sequential path launches {seq_launches} in {CYCLES} cycles")
     if sum(matched) == 0:
         fail("the sequential cycles matched nothing")
@@ -457,7 +566,7 @@ def main():
             sequential_for(wb.C):
         fail(f"unexpected batched sizing {(rs.Pcap, rs.Rcap, rs.Hcap)}")
     b_recorded, b_host_ms, b_matched, b_phase = [], [], [], {}
-    bh_per_cycle, inversions, why_counts = [], [], []
+    bh_per_cycle, cs_per_cycle, inversions, why_counts = [], [], [], []
     fm.reset_launches()
     for c in range(BATCHED):
         before = dict(fm.LAUNCHES)
@@ -471,11 +580,15 @@ def main():
         b_matched.append(len(mat_idx))
         d_scan = fm.LAUNCHES["exact_scan"] - before["exact_scan"]
         d_bh = fm.LAUNCHES["best_host"] - before["best_host"]
+        d_cs = fm.LAUNCHES["blocked_cumsum"] - before["blocked_cumsum"]
         bh_per_cycle.append(d_bh)
+        cs_per_cycle.append(d_cs)
         if d_scan != 1:
             fail(f"batched cycle {c}: exact_scan launched {d_scan} times")
         if d_bh < 1:
             fail(f"batched cycle {c}: best_host never launched")
+        if d_cs < 1:
+            fail(f"batched cycle {c}: blocked_cumsum never launched")
         check_cycle_state(wb, mat_idx, c, "batched")
         why_counts.append(np.bincount(out[8].cpu().numpy(),
                                       minlength=8).tolist())
@@ -490,6 +603,8 @@ def main():
     if sum(b_matched) == 0:
         fail("the batched cycles matched nothing")
     print(json.dumps({"batched_best_host_launches_per_cycle": bh_per_cycle,
+                      "batched_blocked_cumsum_launches_per_cycle":
+                          cs_per_cycle,
                       "batched_head_window_inversions": inversions,
                       "batched_why_code_counts": why_counts,
                       "audit_window": AUDIT_WINDOW}), flush=True)
@@ -528,19 +643,31 @@ def main():
         "batched": {"setup_s": b_setup_s, "cycles": BATCHED,
                     "C": C_BATCHED, "head_exact": HEAD_START,
                     "best_host_launches_per_cycle": bh_per_cycle,
+                    "blocked_cumsum_launches_per_cycle": cs_per_cycle,
                     **cycle_stats(b_phase, b_host_ms, b_matched)},
+        "exact_scan_cluster_ctas": cluster,
         "exact_scan_ms": kernel_ms,
         "exact_scan_head_ms": head_ms,
         "exact_scan_plain_ms": plain_ms,
         "exact_scan_bound_ms": scan_bound_ms,
+        "exact_scan_chain_floor_ms": floor_ms,
+        "exact_scan_chain_floor_hosts": cluster * 32,
         "best_host_ms": bh_ms,
         "best_host_bonus_ms": bh_bonus_ms,
         "best_host_bonus_bound_ms": bh_bonus_bound_ms,
         "best_host_plain_ms": bh_plain_ms,
         "best_host_bound_ms": bh_bound_ms,
         "best_host_feasible_pairs": feas,
+        "blocked_cumsum_shape": list(CUMSUM_SHAPES[0]),
+        "blocked_cumsum_ms": cs_ms,
+        "blocked_cumsum_plain_ms": cs_plain_ms,
+        "blocked_cumsum_bound_ms": cs_bound_ms,
+        "torch_cumsum_dim0_ms": cs_lib_ms,
+        "torch_cumsum_transposed_ms": cs_lib_inner_ms,
         "library_note": "no single PyTorch call computes the sequential "
-                        "scan or the masked fitness argmax",
+                        "scan or the masked fitness argmax; "
+                        "torch.cumsum(x, 0) computes blocked_cumsum's "
+                        "function in another association",
     }
     print(json.dumps(timings), flush=True)
     by_path = {k: {"sequential": seq_launches[k], "batched": b_launches[k]}
@@ -552,14 +679,25 @@ def main():
          "launches": sum(by_path["exact_scan"].values()),
          "launches_by_path": by_path["exact_scan"], "max_abs_err": max_err,
          "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": scan_bound_ms,
-         "bound_by": scan_bound_by, "library_ms": None},
+         "bound_by": scan_bound_by, "library_ms": None,
+         "chain_floor_ms": floor_ms, "cluster_ctas": cluster},
         {"name": "best_host", "route": "cuda",
          "source": "cook_tpu_torch/csrc/best_host.cu",
          "replaces": "cook_tpu/ops/pallas_match.py:285",
          "launches": sum(by_path["best_host"].values()),
          "launches_by_path": by_path["best_host"], "max_abs_err": bh_err,
          "ms": bh_ms, "plain_ms": bh_plain_ms, "bound_ms": bh_bound_ms,
-         "bound_by": bh_bound_by, "library_ms": None}]}), flush=True)
+         "bound_by": bh_bound_by, "library_ms": None},
+        {"name": "blocked_cumsum", "route": "cuda",
+         "source": "cook_tpu_torch/csrc/blocked_cumsum.cu",
+         "replaces": "none: jnp.cumsum (cook_tpu/ops/segments.py:39, "
+                     "dru.py:136, match.py:530-563), no pl.pallas_call",
+         "launches": sum(by_path["blocked_cumsum"].values()),
+         "launches_by_path": by_path["blocked_cumsum"],
+         "max_abs_err": cs_err, "ms": cs_ms, "plain_ms": cs_plain_ms,
+         "bound_ms": cs_bound_ms, "bound_by": cs_bound_by,
+         "library_ms": cs_lib_ms,
+         "shape": list(CUMSUM_SHAPES[0])}]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,43 +1,77 @@
-// exact_scan: the whole sequential-greedy Fenzo walk in one launch.
+// exact_scan: the whole sequential-greedy Fenzo walk in one launch, on a
+// thread-block cluster.
 //
-// Replaces the TPU kernel cook_tpu/ops/pallas_match.py::_exact_scan_kernel
-// (wrapper `exact_scan`). For each of S queue-ordered jobs: build the
-// feasibility mask over all H hosts (host valid, slots > 0, forbidden byte
-// 0, mem/cpus fit with eps 1e-6, the gpu-host rule, group-0 unique
-// occupancy, job active), score cpuMemBinPacker fitness with precomputed
-// reciprocals, take the global argmax (lowest index among equal maxima),
-// then deplete mem/cpus/gpus/slots of the chosen host and set its occ0.
+// Replaces the TPU kernel cook_tpu/ops/pallas_match.py:166-272
+// (`_exact_scan_kernel`, wrapper `exact_scan`). For each of S
+// queue-ordered jobs: build the feasibility mask over all H hosts (host
+// valid, slots > 0, forbidden byte 0, mem/cpus fit with eps 1e-6, the
+// gpu-host rule, group-0 unique occupancy, job active), score
+// cpuMemBinPacker fitness with precomputed reciprocals, take the global
+// argmax (lowest index among equal maxima), then deplete mem/cpus/gpus/
+// slots of the chosen host and set its occ0.
 //
-// What bounds it on an H100: a chain of S DEPENDENT block-wide argmax
-// reductions — step i+1 reads the host state step i wrote — so it is
-// latency-bound, plus S x H bytes of forbidden mask streamed once.
+// What bounds it on an H100: not bytes (S x H mask bytes once, ~17 MB at
+// S = 1024, H = 16384: 5 us at 3.35 TB/s) but the chain of S DEPENDENT
+// argmax steps: step i + 1 reads the host state step i wrote. The time
+// is S x (one step's latency), and the design cuts that latency:
 //
-// Design (simple first): ONE block of up to 1024 threads; thread t owns
-// hosts t, t + blockDim, t + 2 blockDim, ... (any H works). Host state
-// lives in a device-memory scratch owned per thread (only the owner ever
-// reads or writes a host's mutable lanes, so no cross-thread sync is
-// needed on it); each step's forbidden row streams from device memory,
-// coalesced across the block. The per-step argmax is a warp-shuffle
-// reduction then a shared-memory reduction over warps, carrying the
-// index, lowest index winning ties. The owner of the winning host
-// depletes it.
+// - A cluster of 16 CTAs (non-portable size; 8 where the card cannot
+//   co-schedule 16), launched with cudaLaunchKernelEx. CTA r owns one
+//   contiguous slice of the hosts (a multiple of 16 long), so a step's
+//   fitness work is spread over 16 SMs instead of one.
+// - Host lanes on chip for the whole scan: each CTA keeps mem, cpus,
+//   gpus, slots, cap_mem, cap_cpus, 1/cap_mem, 1/cap_cpus (two float4)
+//   and the valid/gpu/occ0/occ-new flag bits of up to kCap = 4096 hosts
+//   in shared memory, 33 B a host: an on-chip capacity of 65,536 hosts
+//   with 16 CTAs (32,768 with 8). No lane is re-read from device memory
+//   at any step. Beyond the capacity, a slice's remaining hosts keep
+//   their lanes in a global scratch (slower, but any H works).
+// - The mask is prefetched: each CTA keeps a ring of kRing mask rows of
+//   its on-chip slice in shared memory, filled kRing steps ahead by
+//   `cp.async.bulk` (a 1-D bulk copy completing on an mbarrier with an
+//   expected byte count), so no device-memory latency sits on the chain.
+//   A slice that is not 16-byte aligned or sized (H % 16 != 0) reads
+//   its mask bytes with plain loads instead. The job rows are staged in
+//   shared memory up front (kJobTile rows at a time).
+// - One cluster barrier a step: per-thread fitness; a warp-shuffle
+//   argmax; the CTA argmax through shared memory (one __syncthreads);
+//   warp 0 writes the CTA's (fit, idx) into slot r of every CTA's shared
+//   memory over DSMEM; one barrier.cluster.arrive.release /
+//   wait.acquire; every warp of every CTA reduces the same candidates
+//   in the same order, so all agree on the winner, and the owning thread
+//   depletes its lanes. The slots are double-buffered by step parity,
+//   so a CTA that runs ahead cannot overwrite candidates still being
+//   read. CTA 0 writes job_host[i]; at the end each CTA writes its slice
+//   of hosts_out.
 //
-// Numerics: every float op is an explicit round-to-nearest intrinsic
-// (no FMA contraction) and 1/cap is IEEE division, so job_host equals the
-// plain PyTorch version exactly and the host lanes match bit for bit.
+// Numerics (as the one-block kernel before it): every float op is an
+// explicit round-to-nearest intrinsic (no FMA contraction; the build also
+// passes --fmad=false) and 1/cap is IEEE division, the TPU kernel's
+// reciprocal-form fitness (pallas_match.py:190-191, 214-215). The running
+// max starts at -INF, the lowest index wins ties and m > -0.5 means
+// assigned; argmax with that tie-break does not depend on the reduction
+// order, so the cluster picks the same host as a single block. job_host
+// equals the plain PyTorch version and the host lanes match bit for bit.
 // Build without --use_fast_math.
-//
-// Later work: thread-block clusters with a DSMEM argmax reduction, host
-// lanes in registers/shared memory across a cluster, and TMA streaming of
-// the mask rows.
 #include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <stdint.h>
 #include <limits.h>
 #include <math.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kMaxThreads = 1024;
+constexpr int kMaxThreads = 512;
+constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kMaxCluster = 16;
+// the CTA and cluster reductions hold one candidate per lane of a half
+// warp (both halves the same), so each is a 4-level butterfly
+static_assert(kMaxWarps <= 16 && kMaxCluster <= 16, "half-warp reductions");
+constexpr int kCap = 4096;      // on-chip hosts per CTA
+constexpr int kRing = 4;        // mask rows in flight per CTA
+constexpr int kJobTile = 1024;  // job rows staged at a time
 constexpr int JOB_COLS = 8;
 enum { H_MEM, H_CPUS, H_GPUS, H_CAP_MEM, H_CAP_CPUS, H_CAP_GPUS, H_SLOTS,
        H_VALID, H_OCC0 };
@@ -50,15 +84,24 @@ constexpr uint8_t F_GPU = 2;      // cap_gpus > 0
 constexpr uint8_t F_OCC0 = 4;     // group-0 occupied (input or this scan)
 constexpr uint8_t F_OCC_NEW = 8;  // occupied by this scan
 
+// dynamic shared memory: dyn[kCap] float4, stat[kCap] float4,
+// jobs[kJobTile * 8] f32, ring[kRing][kCap] u8, flags[kCap] u8
+constexpr size_t kSmemBytes = 2 * kCap * sizeof(float4) +
+                              kJobTile * JOB_COLS * sizeof(float) +
+                              kRing * kCap + kCap;
+
 __device__ __forceinline__ bool better(float f, int i, float bf, int bi) {
   return f > bf || (f == bf && i < bi);
 }
 
+// butterfly argmax over each run of kWidth lanes: every lane ends with
+// its run's (max, lowest index)
+template <int kWidth>
 __device__ __forceinline__ void warp_argmax(float& bf, int& bi) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float of = __shfl_down_sync(0xffffffffu, bf, off);
-    const int oi = __shfl_down_sync(0xffffffffu, bi, off);
+  for (int off = kWidth / 2; off > 0; off >>= 1) {
+    const float of = __shfl_xor_sync(0xffffffffu, bf, off, kWidth);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, off, kWidth);
     if (better(of, oi, bf, bi)) {
       bf = of;
       bi = oi;
@@ -66,132 +109,322 @@ __device__ __forceinline__ void warp_argmax(float& bf, int& bi) {
   }
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(1) : "memory");
+}
+
+// one mask row slice, global -> shared, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
+}
+
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+struct __align__(8) Cand {
+  float f;
+  int i;
+};
+
+struct Job {
+  float jm, jc, jg;
+  bool ja, ju;
+};
+
+// fold one host into the thread's running (fit, idx); hosts arrive in
+// ascending index order, so a strict > keeps the lowest index on ties
+__device__ __forceinline__ void score(const Job& j, uint8_t fl, float4 d,
+                                      float4 st, uint8_t fb, int h,
+                                      float& bf, int& bi) {
+  bool ok = j.ja && (fl & F_VALID) && d.w > 0.f && fb == 0;
+  ok = ok && __fadd_rn(d.x, EPS) >= j.jm && __fadd_rn(d.y, EPS) >= j.jc;
+  const bool is_gpu = (fl & F_GPU) != 0;
+  ok = ok && (j.jg > 0.f ? (is_gpu && __fadd_rn(d.z, EPS) >= j.jg) : !is_gpu);
+  ok = ok && !(j.ju && (fl & F_OCC0));
+  float fit = -1.0f;
+  if (ok) {
+    const float fm = __fmul_rn(__fadd_rn(__fsub_rn(st.x, d.x), j.jm), st.z);
+    const float fc = __fmul_rn(__fadd_rn(__fsub_rn(st.y, d.y), j.jc), st.w);
+    fit = __fmul_rn(0.5f, __fadd_rn(fm, fc));
+  }
+  if (fit > bf) {
+    bf = fit;
+    bi = h;
+  }
+}
+
+__device__ __forceinline__ void deplete(const Job& j, float4& d,
+                                        uint8_t& fl) {
+  d.x = __fsub_rn(d.x, j.jm);
+  d.y = __fsub_rn(d.y, j.jc);
+  d.z = __fsub_rn(d.z, j.jg);
+  d.w = __fsub_rn(d.w, 1.0f);
+  if (j.ju) fl |= F_OCC0 | F_OCC_NEW;
+}
+
+__device__ __forceinline__ void host_lanes(const float* __restrict__ hin,
+                                           size_t HH, int h, float4& d,
+                                           float4& st, uint8_t& fl) {
+  const float cm = hin[H_CAP_MEM * HH + h];
+  const float cc = hin[H_CAP_CPUS * HH + h];
+  st = make_float4(cm, cc, cm > 0.f ? __fdiv_rn(1.0f, cm) : 0.f,
+                   cc > 0.f ? __fdiv_rn(1.0f, cc) : 0.f);
+  d = make_float4(hin[H_MEM * HH + h], hin[H_CPUS * HH + h],
+                  hin[H_GPUS * HH + h], hin[H_SLOTS * HH + h]);
+  fl = (hin[H_VALID * HH + h] > 0.f ? F_VALID : 0) |
+       (hin[H_CAP_GPUS * HH + h] > 0.f ? F_GPU : 0) |
+       (hin[H_OCC0 * HH + h] > 0.f ? F_OCC0 : 0);
+}
+
+__device__ __forceinline__ void write_host(const float* __restrict__ hin,
+                                           float* __restrict__ hout,
+                                           size_t HH, int h, float4 d,
+                                           uint8_t fl) {
+#pragma unroll
+  for (int r = 0; r < HOST_ROWS; ++r) hout[r * HH + h] = hin[r * HH + h];
+  hout[H_MEM * HH + h] = d.x;
+  hout[H_CPUS * HH + h] = d.y;
+  hout[H_GPUS * HH + h] = d.z;
+  hout[H_SLOTS * HH + h] = d.w;
+  if (fl & F_OCC_NEW)
+    hout[H_OCC0 * HH + h] = fmaxf(hin[H_OCC0 * HH + h], 1.0f);
+}
+
+__device__ __forceinline__ void stage_jobs(const float* __restrict__ jobs,
+                                           float* s_jobs, int first, int S) {
+  const int n = min(kJobTile, S - first) * JOB_COLS;
+  for (int e = threadIdx.x; e < n; e += blockDim.x)
+    s_jobs[e] = jobs[(size_t)first * JOB_COLS + e];
+}
+
+// blockDim.x is a power of two (32..512); thread t of CTA r owns slice
+// hosts l = t, t + blockDim.x, ... (global index h0 + l): it alone reads
+// and writes their lanes, so no sync is needed on them.
 __global__ void __launch_bounds__(kMaxThreads, 1)
 exact_scan_kernel(const float* __restrict__ jobs,
                   const float* __restrict__ hosts_in,
                   const uint8_t* __restrict__ forb,
                   int32_t* __restrict__ job_host,
                   float* __restrict__ hosts_out,
-                  float4* dyn, float4* stat, uint8_t* flags,
-                  int S, int H) {
-  __shared__ float s_fit[32];
-  __shared__ int s_idx[32];
-  __shared__ float s_best_fit;
-  __shared__ int s_best_idx;
+                  float4* g_dyn, float4* g_stat, uint8_t* g_flags,
+                  int S, int H, int per_cta, int bulk) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float4* s_dyn = reinterpret_cast<float4*>(smem);
+  float4* s_stat = s_dyn + kCap;
+  float* s_jobs = reinterpret_cast<float*>(s_stat + kCap);
+  uint8_t* s_ring = reinterpret_cast<uint8_t*>(s_jobs + kJobTile * JOB_COLS);
+  uint8_t* s_flags = s_ring + kRing * kCap;
+  __shared__ Cand s_cand[2][kMaxCluster];  // by step parity
+  __shared__ Cand s_warp[kMaxWarps];
+  __shared__ __align__(8) uint64_t s_bar[kRing];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nthreads = blockDim.x;
-  const int nwarps = nthreads >> 5;
+  const int T = blockDim.x;
+  const int nwarps = T >> 5;
   const size_t HH = (size_t)H;
+  const int h0 = (int)min((long long)H, (long long)rank * per_cta);
+  const int h1 = (int)min((long long)H, (long long)h0 + per_cta);
+  const int n_loc = h1 - h0;
+  const int n_on = min(n_loc, kCap);
+  const bool ring = bulk && n_on > 0;
 
-  // per-host scratch, each entry touched only by its owner thread
-  for (int h = tid; h < H; h += nthreads) {
-    const float cm = hosts_in[H_CAP_MEM * HH + h];
-    const float cc = hosts_in[H_CAP_CPUS * HH + h];
-    const float inv_cm = cm > 0.f ? __fdiv_rn(1.0f, cm) : 0.f;
-    const float inv_cc = cc > 0.f ? __fdiv_rn(1.0f, cc) : 0.f;
-    stat[h] = make_float4(cm, cc, inv_cm, inv_cc);
-    dyn[h] = make_float4(hosts_in[H_MEM * HH + h], hosts_in[H_CPUS * HH + h],
-                         hosts_in[H_GPUS * HH + h],
-                         hosts_in[H_SLOTS * HH + h]);
-    flags[h] = (hosts_in[H_VALID * HH + h] > 0.f ? F_VALID : 0) |
-               (hosts_in[H_CAP_GPUS * HH + h] > 0.f ? F_GPU : 0) |
-               (hosts_in[H_OCC0 * HH + h] > 0.f ? F_OCC0 : 0);
+  for (int l = tid; l < n_loc; l += T) {
+    float4 d, st;
+    uint8_t fl;
+    host_lanes(hosts_in, HH, h0 + l, d, st, fl);
+    if (l < kCap) {
+      s_dyn[l] = d;
+      s_stat[l] = st;
+      s_flags[l] = fl;
+    } else {
+      g_dyn[h0 + l] = d;
+      g_stat[h0 + l] = st;
+      g_flags[h0 + l] = fl;
+    }
   }
+  if (ring && tid == 0) {
+    for (int s = 0; s < kRing; ++s) mbar_init(&s_bar[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  stage_jobs(jobs, s_jobs, 0, S);
+  __syncthreads();
+  if (ring && tid == 0)
+    for (int i = 0; i < min(S, kRing); ++i)
+      bulk_load(s_ring + i * kCap, forb + (size_t)i * HH + h0, n_on,
+                &s_bar[i]);
+  cluster_barrier();  // every CTA runs before any DSMEM write
 
   for (int i = 0; i < S; ++i) {
-    const float* row = jobs + (size_t)i * JOB_COLS;
-    const float jm = row[J_MEM];
-    const float jc = row[J_CPUS];
-    const float jg = row[J_GPUS];
-    const bool ja = row[J_ACTIVE] > 0.f;
-    const bool ju = row[J_UNIQUE] > 0.f;
-    const uint8_t* frow = forb + (size_t)i * HH;
+    if (i > 0 && i % kJobTile == 0) {
+      // every thread read row i - 1 before the last cluster barrier
+      stage_jobs(jobs, s_jobs, i, S);
+      __syncthreads();
+    }
+    const float* row = s_jobs + (i % kJobTile) * JOB_COLS;
+    const Job j = {row[J_MEM], row[J_CPUS], row[J_GPUS],
+                   row[J_ACTIVE] > 0.f, row[J_UNIQUE] > 0.f};
+    const int slot = i % kRing;
+    const uint8_t* mrow = s_ring + slot * kCap;
+    const uint8_t* frow = forb + (size_t)i * HH + h0;
+    if (ring) mbar_wait(&s_bar[slot], (uint32_t)(i / kRing) & 1u);
 
     float bf = -INFINITY;
     int bi = INT_MAX;
-    for (int h = tid; h < H; h += nthreads) {
-      const uint8_t fl = flags[h];
-      const float4 d = dyn[h];
-      const float4 st = stat[h];
-      bool ok = ja && (fl & F_VALID) && d.w > 0.f && frow[h] == 0;
-      ok = ok && __fadd_rn(d.x, EPS) >= jm && __fadd_rn(d.y, EPS) >= jc;
-      const bool is_gpu = (fl & F_GPU) != 0;
-      ok = ok && (jg > 0.f ? (is_gpu && __fadd_rn(d.z, EPS) >= jg) : !is_gpu);
-      ok = ok && !(ju && (fl & F_OCC0));
-      float fit = -1.0f;
-      if (ok) {
-        const float fm = __fmul_rn(__fadd_rn(__fsub_rn(st.x, d.x), jm), st.z);
-        const float fc = __fmul_rn(__fadd_rn(__fsub_rn(st.y, d.y), jc), st.w);
-        fit = __fmul_rn(0.5f, __fadd_rn(fm, fc));
-      }
-      if (better(fit, h, bf, bi)) {
-        bf = fit;
-        bi = h;
-      }
-    }
+    for (int l = tid; l < n_on; l += T)
+      score(j, s_flags[l], s_dyn[l], s_stat[l], ring ? mrow[l] : frow[l],
+            h0 + l, bf, bi);
+    for (int l = kCap + tid; l < n_loc; l += T)
+      score(j, g_flags[h0 + l], g_dyn[h0 + l], g_stat[h0 + l], frow[l],
+            h0 + l, bf, bi);
 
-    warp_argmax(bf, bi);
-    if (lane == 0) {
-      s_fit[warp] = bf;
-      s_idx[warp] = bi;
-    }
+    warp_argmax<32>(bf, bi);
+    if (lane == 0) s_warp[warp] = Cand{bf, bi};
     __syncthreads();
+    const int par = i & 1;
     if (warp == 0) {
-      bf = lane < nwarps ? s_fit[lane] : -INFINITY;
-      bi = lane < nwarps ? s_idx[lane] : INT_MAX;
-      warp_argmax(bf, bi);
-      if (lane == 0) {
-        s_best_fit = bf;
-        s_best_idx = bi;
+      const int w = lane & 15;
+      const Cand v = w < nwarps ? s_warp[w] : Cand{-INFINITY, INT_MAX};
+      float f = v.f;
+      int x = v.i;
+      warp_argmax<16>(f, x);
+      if (lane < C)
+        *cluster.map_shared_rank(&s_cand[par][rank], lane) = Cand{f, x};
+    }
+    cluster_barrier();
+
+    float m = -INFINITY;
+    int best = INT_MAX;
+    if ((lane & 15) < C) {
+      const Cand v = s_cand[par][lane & 15];
+      m = v.f;
+      best = v.i;
+    }
+    warp_argmax<16>(m, best);
+    const bool assigned = m > -0.5f;
+    if (rank == 0 && tid == 0) job_host[i] = assigned ? best : -1;
+    if (assigned && best >= h0 && best < h1 &&
+        ((best - h0) & (T - 1)) == tid) {
+      const int l = best - h0;
+      if (l < kCap) {
+        deplete(j, s_dyn[l], s_flags[l]);
+      } else {
+        deplete(j, g_dyn[best], g_flags[best]);
       }
     }
-    __syncthreads();
-
-    const float m = s_best_fit;
-    const int best = s_best_idx;
-    const bool assigned = m > -0.5f;
-    if (tid == 0) job_host[i] = assigned ? best : -1;
-    if (assigned && best % nthreads == tid) {
-      float4 d = dyn[best];
-      d.x = __fsub_rn(d.x, jm);
-      d.y = __fsub_rn(d.y, jc);
-      d.z = __fsub_rn(d.z, jg);
-      d.w = __fsub_rn(d.w, 1.0f);
-      dyn[best] = d;
-      if (ju) flags[best] |= F_OCC0 | F_OCC_NEW;
-    }
+    // every thread of this CTA read slot `slot` before the barrier
+    if (ring && tid == 0 && i + kRing < S)
+      bulk_load(s_ring + slot * kCap, forb + (size_t)(i + kRing) * HH + h0,
+                n_on, &s_bar[slot]);
   }
+  cluster_barrier();  // no CTA leaves while another could touch its smem
 
-  for (int h = tid; h < H; h += nthreads) {
-#pragma unroll
-    for (int r = 0; r < HOST_ROWS; ++r)
-      hosts_out[r * HH + h] = hosts_in[r * HH + h];
-    const float4 d = dyn[h];
-    hosts_out[H_MEM * HH + h] = d.x;
-    hosts_out[H_CPUS * HH + h] = d.y;
-    hosts_out[H_GPUS * HH + h] = d.z;
-    hosts_out[H_SLOTS * HH + h] = d.w;
-    if (flags[h] & F_OCC_NEW)
-      hosts_out[H_OCC0 * HH + h] = fmaxf(hosts_in[H_OCC0 * HH + h], 1.0f);
+  for (int l = tid; l < n_loc; l += T) {
+    if (l < kCap)
+      write_host(hosts_in, hosts_out, HH, h0 + l, s_dyn[l], s_flags[l]);
+    else
+      write_host(hosts_in, hosts_out, HH, h0 + l, g_dyn[h0 + l],
+                 g_flags[h0 + l]);
   }
+}
+
+int g_cluster = 0;
+
+// 16 CTAs where the card can co-schedule a cluster of 16 with this
+// kernel's shared memory, else the portable 8 (chosen once)
+int cluster_size() {
+  if (g_cluster) return g_cluster;
+  cudaFuncSetAttribute(exact_scan_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)kSmemBytes);
+  cudaFuncSetAttribute(exact_scan_kernel,
+                       cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kMaxCluster);
+  cfg.blockDim = dim3(kMaxThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kMaxCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(
+      &n, (void*)exact_scan_kernel, &cfg);
+  if (e != cudaSuccess || n < 1) {
+    cudaGetLastError();
+    g_cluster = 8;
+  } else {
+    g_cluster = kMaxCluster;
+  }
+  return g_cluster;
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). Launches on `stream` and
-// returns cudaGetLastError() as an int (0 = launched).
+// The cluster size launches use (16, or 8 where 16 cannot be scheduled).
+extern "C" int exact_scan_cluster(void) { return cluster_size(); }
+
+// Plain C entry point (bound with ctypes). `dyn`/`stat`/`flags` are the
+// global scratch of H hosts' lanes, used only beyond the on-chip
+// capacity. Launches one cluster on `stream` and returns the launch's
+// error (or cudaGetLastError()) as an int (0 = launched).
 extern "C" int exact_scan_launch(const void* jobs, const void* hosts_in,
                                  const void* forb, void* job_host,
                                  void* hosts_out, void* dyn, void* stat,
                                  void* flags, int S, int H, void* stream) {
-  int threads = ((H + 31) / 32) * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  if (threads < 32) threads = 32;
-  exact_scan_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)jobs, (const float*)hosts_in, (const uint8_t*)forb,
-      (int32_t*)job_host, (float*)hosts_out, (float4*)dyn, (float4*)stat,
-      (uint8_t*)flags, S, H);
+  const int C = cluster_size();
+  const int per_cta = ((H + C - 1) / C + 15) / 16 * 16;
+  int threads = 32;
+  while (threads < per_cta && threads < kMaxThreads) threads <<= 1;
+  const int bulk = H % 16 == 0 && (uintptr_t)forb % 16 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, exact_scan_kernel, (const float*)jobs, (const float*)hosts_in,
+      (const uint8_t*)forb, (int32_t*)job_host, (float*)hosts_out,
+      (float4*)dyn, (float4*)stat, (uint8_t*)flags, S, H, per_cta, bulk);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -25,16 +25,22 @@ BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-KERNELS = ("exact_scan", "best_host")
+KERNELS = ("exact_scan", "best_host", "blocked_cumsum")
 
-# argtypes of each kernel's launch function
+# argtypes of the C functions each kernel's library exports (all return
+# int)
 _SIGNATURES = {
-    "exact_scan": ("exact_scan_launch",
-                   [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_void_p]),
-    "best_host": ("best_host_launch",
-                  [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]),
+    "exact_scan": {
+        "exact_scan_launch": [ctypes.c_void_p] * 8 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        "exact_scan_cluster": []},
+    "best_host": {
+        "best_host_launch": [ctypes.c_void_p] * 6 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]},
+    "blocked_cumsum": {
+        "blocked_cumsum_launch": [ctypes.c_void_p] * 3 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]},
 }
 
 _lock = threading.Lock()
@@ -109,10 +115,10 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _loaded:
             lib = ctypes.CDLL(str(_target(name)[1]))
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _loaded[name] = lib
         return _loaded[name]
 

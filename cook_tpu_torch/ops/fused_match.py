@@ -4,7 +4,7 @@ cook_tpu/ops/pallas_match.py (`pack_jobs`, `pack_hosts`, `exact_scan`,
 `_accumulate`, `_kernel`, `_kernel_bonus`).
 
   exact_scan  the whole sequential-greedy walk (the Fenzo walk) in one
-              launch (csrc/exact_scan.cu);
+              launch of a thread-block cluster (csrc/exact_scan.cu);
   best_host   one dense round of the batched matcher: feasibility +
               fitness + optional bonus + hash jitter, row argmax over
               hosts (csrc/best_host.cu).
@@ -37,7 +37,7 @@ J_MEM, J_CPUS, J_GPUS, J_ACTIVE, J_UNIQUE = range(5)
 JOB_COLS = 8
 
 # kernel launches by name, counted by the wrapper where it launches
-LAUNCHES = {"exact_scan": 0, "best_host": 0}
+LAUNCHES = {"exact_scan": 0, "best_host": 0, "blocked_cumsum": 0}
 
 
 def reset_launches() -> None:
@@ -73,12 +73,14 @@ def exact_scan_ok(S: int, H: int, num_groups: int) -> bool:
 
     The TPU gate's other two conditions do not carry over. `H % 1024`
     came from the (8, 128) vector tiling of a VMEM-resident host stack;
-    the CUDA kernel walks hosts with a strided loop and masks nothing,
-    so any H works. The VMEM budget kept the whole (S, H)
-    forbidden mask on chip; the CUDA kernel streams each step's mask row
-    from device memory and keeps host state in a device-memory scratch,
-    so its footprint is independent of on-chip memory. The remaining
-    limits are the index widths: i32 host ids, i64 mask offsets.
+    the CUDA kernel cuts the hosts into one slice per CTA of its cluster
+    and walks each slice with a strided loop, so any H works (a mask row
+    not 16-byte sized is read with plain loads instead of bulk copies).
+    The VMEM budget kept the whole (S, H) forbidden mask on chip; the
+    CUDA kernel prefetches a few mask rows at a time and keeps up to
+    65,536 hosts' lanes on chip, the rest in a device-memory scratch, so
+    no H is refused. The remaining limits are the index widths: i32 host
+    ids, i64 mask offsets.
     """
     return num_groups == 1 and S >= 8 and 1 <= H < 2 ** 31
 
@@ -98,6 +100,14 @@ def exact_scan(jobs_packed: torch.Tensor, hosts_packed: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"exact_scan: unsupported device {dev}")
     return _exact_scan_cuda(jobs_packed, hosts_packed, forbidden_u8)
+
+
+def exact_scan_cluster() -> int:
+    """CTAs in the CUDA kernel's cluster: 16 where the card can co-schedule
+    them, else 8 (builds the kernel; needs the CUDA toolkit)."""
+    from cook_tpu_torch.kernels import build
+
+    return int(build.load("exact_scan").exact_scan_cluster())
 
 
 def _check(jobs_packed, hosts_packed, forb):
@@ -134,8 +144,9 @@ def _exact_scan_cuda(jobs_packed, hosts_packed, forb):
     lib = build.load("exact_scan")
     job_host = torch.empty(S, dtype=torch.int32, device=dev)
     hosts_out = torch.empty_like(hosts_packed)
-    # scratch: per host mutable lanes (mem, cpus, gpus, slots), static
-    # lanes (cap_mem, cap_cpus, 1/cap_mem, 1/cap_cpus) and flag bits
+    # scratch for the hosts beyond the kernel's on-chip capacity: per
+    # host mutable lanes (mem, cpus, gpus, slots), static lanes (cap_mem,
+    # cap_cpus, 1/cap_mem, 1/cap_cpus) and flag bits, indexed by host
     dyn = torch.empty((H, 4), dtype=torch.float32, device=dev)
     stat = torch.empty((H, 4), dtype=torch.float32, device=dev)
     flags = torch.empty(H, dtype=torch.uint8, device=dev)

@@ -29,14 +29,121 @@ def segment_start_index(starts: torch.Tensor) -> torch.Tensor:
 
 
 def cumsum0(values: torch.Tensor) -> torch.Tensor:
-    """Inclusive cumsum along dim 0, keeping the dtype. A 2-D input is
-    scanned column by column on a transposed contiguous copy: PyTorch's
-    CUDA scan along an OUTER dim walks each column sequentially (~9 ms
-    for 147k rows on an H100), its innermost-dim scan is parallel."""
+    """Inclusive cumsum along dim 0 of a 1-D or 2-D tensor, keeping the
+    dtype.
+
+    float32 takes `blocked_cumsum`: the association of jax 0.9.0's
+    XLA-CPU `reduce_window` cumsum (a blocked scan with base 16), so
+    every f32 prefix sum of the port is bit-equal to the JAX package's
+    on the CPU at any size, and the same from run to run on CUDA;
+    tests/test_torch_cumsum.py pins it. Integers take `torch.cumsum`,
+    exact in any order; a 2-D integer input is scanned column by column
+    on a transposed contiguous copy (PyTorch's CUDA scan along an OUTER
+    dim walks each column sequentially, ~9 ms for 147k rows on an H100).
+    Any other float dtype raises: the reference only scans f32."""
+    if values.dtype == torch.float32:
+        return blocked_cumsum(values)
+    if values.is_floating_point() or values.is_complex():
+        raise TypeError(f"cumsum0: float prefix sums are float32 only, got "
+                        f"{values.dtype}")
     if values.dim() == 1:
         return torch.cumsum(values, dim=0, dtype=values.dtype)
     return torch.cumsum(values.t().contiguous(), dim=1,
                         dtype=values.dtype).t()
+
+
+BLOCK = 16     # XLA-CPU's cumsum block
+
+
+def blocked_cumsum(values: torch.Tensor) -> torch.Tensor:
+    """f32 inclusive prefix sum along dim 0 (1-D, or 2-D column by
+    column) in XLA-CPU's association: runs of BLOCK elements summed left
+    to right from 0, the block totals scanned the same way recursively,
+    each block's exclusive prefix added to its running sums. CUDA
+    tensors launch csrc/blocked_cumsum.cu; CPU tensors run the plain
+    version; anything else raises."""
+    dev = values.device
+    if dev.type == "cpu":
+        return blocked_cumsum_plain(values)
+    if dev.type != "cuda":
+        raise ValueError(f"blocked_cumsum: unsupported device {dev}")
+    return _blocked_cumsum_cuda(values)
+
+
+def _check_cumsum(values):
+    if values.dtype != torch.float32 or values.dim() not in (1, 2):
+        raise TypeError(f"blocked_cumsum: 1-D or 2-D float32, got "
+                        f"{values.dtype} {tuple(values.shape)}")
+
+
+def blocked_cumsum_plain(values: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, on any device: the same f32
+    additions in the same order, one elementwise op per step (~17
+    launches per level)."""
+    _check_cumsum(values)
+    if values.shape[0] == 1:    # XLA: a window of one is the identity
+        return values.clone()
+    x = values if values.dim() == 2 else values[:, None]
+    out = _blocked_scan(x)
+    return out if values.dim() == 2 else out[:, 0]
+
+
+def _blocked_scan(x: torch.Tensor) -> torch.Tensor:
+    n, k = x.shape
+    nb = -(-n // BLOCK)
+    xb = x.new_zeros((nb * BLOCK, k))
+    xb[:n] = x
+    xb = xb.view(nb, BLOCK, k)
+    run = [xb[:, 0] + 0.0]      # from 0, as XLA: -0.0 sums to +0.0
+    for j in range(1, BLOCK):
+        run.append(run[-1] + xb[:, j])
+    local = torch.stack(run, dim=1)
+    if nb > 1:
+        prefix = _blocked_scan(local[:, -1])
+        local[1:] = local[1:] + prefix[:-1, None]
+    return local.view(nb * BLOCK, k)[:n]
+
+
+def blocked_cumsum_scratch(n: int) -> int:
+    """Floats of level totals the kernel keeps per column: n/16 +
+    n/256 + ... down to the first level of <= 16 values."""
+    total = 0
+    while n > BLOCK:
+        n = -(-n // BLOCK)
+        total += n
+    return total
+
+
+def _blocked_cumsum_cuda(values: torch.Tensor) -> torch.Tensor:
+    from cook_tpu_torch.kernels import build
+    from cook_tpu_torch.ops.fused_match import LAUNCHES
+
+    _check_cumsum(values)
+    n = values.shape[0]
+    k = 1 if values.dim() == 1 else values.shape[1]
+    if n == 0 or k == 0:
+        return torch.empty(values.shape, dtype=torch.float32,
+                           device=values.device)
+    if n >= 2 ** 31:
+        raise ValueError(f"blocked_cumsum: {n} rows out of range")
+    # one allocation: the output, then the level totals (host time
+    # matters: a batched cycle makes ~33 of these calls)
+    per_col = blocked_cumsum_scratch(n)
+    buf = torch.empty(n * k + per_col * k, dtype=torch.float32,
+                      device=values.device)
+    lib = build.load("blocked_cumsum")
+    dev = values.device
+    with torch.cuda.device(dev):
+        rc = lib.blocked_cumsum_launch(
+            values.data_ptr(), buf.data_ptr(),
+            buf.data_ptr() + 4 * n * k, n, k, values.stride(0),
+            0 if values.dim() == 1 else values.stride(1), per_col,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"blocked_cumsum kernel launch failed: CUDA "
+                           f"error {rc}")
+    LAUNCHES["blocked_cumsum"] += 1
+    return buf[:n * k].view(values.shape)
 
 
 def segment_cumsum(values: torch.Tensor, seg_ids: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,8 @@ head and dense rounds), runs 3 warm-up cycles, then:
    from the upload to the readback (event);
 2. 4 cycles under torch.profiler: device time per cycle summed over
    kernels, the device's idle share of the profiled wall time, the
-   kernels ranked by device time (exact_scan's and best_host's named),
+   kernels ranked by device time (exact_scan's, best_host's and
+   blocked_cumsum's named),
    and the host syncs per cycle (CUDA stream/device synchronisations;
    `.item()`-style reads, `nonzero` and the prefix readback each make
    one);
@@ -126,6 +127,7 @@ def main(argv=None) -> dict:
     scan_ms = sum(k[1] for k in kernels if "exact_scan" in k[0])
     bh = [k for k in kernels if "best_host" in k[0]]
     bh_ms = sum(k[1] for k in bh)
+    cs = [k for k in kernels if "blocked_cumsum" in k[0]]
     sync_sources = _sync_sources(w)
     if a.trace:
         os.makedirs(a.trace, exist_ok=True)
@@ -149,6 +151,8 @@ def main(argv=None) -> dict:
         "best_host_ms_per_cycle": bh_ms,
         "best_host_calls_per_cycle": sum(k[2] for k in bh),
         "best_host_share_of_device": bh_ms / dev_ms if dev_ms else None,
+        "blocked_cumsum_ms_per_cycle": sum(k[1] for k in cs),
+        "blocked_cumsum_calls_per_cycle": sum(k[2] for k in cs),
         "host_syncs_per_cycle": sum(
             v for k, v in syncs.items() if k.startswith("cuda")),
         "sync_events_per_cycle": syncs,

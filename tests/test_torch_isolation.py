@@ -4,9 +4,10 @@
 * no file of the port, nor chip_smoke.py, imports jax or cook_tpu;
 * entry points default to CUDA and raise when it is absent;
 * on a CUDA tensor each kernel wrapper launches its kernel and never
-  reaches its plain version, and agrees with that plain version; the
-  batched matcher's host depletion is bit-reproducible there (needs the
-  card; skipped without one).
+  reaches its plain version, and agrees with that plain version (the
+  cluster exact_scan at its edge shapes; blocked_cumsum bit for bit and
+  from run to run); the batched matcher's host depletion is
+  bit-reproducible there (needs the card; skipped without one).
 """
 import ast
 import os
@@ -103,6 +104,65 @@ def test_exact_scan_rejects_other_devices():
     forb = torch.zeros((8, 64), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fm.exact_scan(jp, hp, forb)
+
+
+def test_blocked_cumsum_rejects_other_devices():
+    from cook_tpu_torch.ops import segments
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        segments.blocked_cumsum(torch.zeros(40, device="meta"))
+
+
+@pytest.mark.cuda
+def test_blocked_cumsum_kernel_equals_plain_on_cuda(monkeypatch):
+    """The f32 prefix-sum kernel is bit-equal to its plain version (which
+    tests/test_torch_cumsum.py holds bit-equal to XLA-CPU's cumsum) and
+    to itself from run to run, on contiguous and strided inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs on the GPU machine only")
+    from cook_tpu_torch.ops import fused_match as fm
+    from cook_tpu_torch.ops import segments
+
+    rng = np.random.default_rng(2)
+    bits = lambda t: t.view(torch.int32)
+    for shape in ((262144, 2), (8192,), (17,), (1,), (4097, 4)):
+        x = torch.from_numpy((10.0 ** rng.uniform(-3, 3, shape)
+                              * rng.choice([-1.0, 1.0], shape))
+                             .astype(np.float32)).to("cuda")
+        views = [x] if x.dim() == 1 else [x, x[:, 1:3]]
+        for v in views:
+            want = segments.blocked_cumsum_plain(v)
+            before = fm.LAUNCHES["blocked_cumsum"]
+            with monkeypatch.context() as m:
+                m.setattr(segments, "blocked_cumsum_plain", None)
+                first = segments.blocked_cumsum(v)
+                second = segments.blocked_cumsum(v)
+            torch.cuda.synchronize()
+            assert fm.LAUNCHES["blocked_cumsum"] == before + 2
+            assert torch.equal(bits(first), bits(want)), shape
+            assert torch.equal(bits(first), bits(second)), shape
+
+
+@pytest.mark.cuda
+def test_exact_scan_cluster_edges_on_cuda():
+    """The cluster kernel against its plain version at chip_smoke.py's
+    edge shapes: H in {1, 33, cluster x 32, 100,000} x S in {8, 256}, one
+    host taking every job, unique jobs against occupied hosts, ties, no
+    feasible host, H = 16411."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs on the GPU machine only")
+    import chip_smoke
+    from cook_tpu_torch.ops import fused_match as fm
+
+    dev = torch.device("cuda")
+    for label, jp, hp, forb in chip_smoke.adversarial(
+            dev, fm.exact_scan_cluster()):
+        got = fm.exact_scan(jp, hp, forb)
+        want = fm.exact_scan_plain(jp, hp, forb)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]), label
+        assert torch.equal(got[1], want[1]), label
+        chip_smoke.check_adversarial(label, jp, hp, got[0])
 
 
 @pytest.mark.cuda

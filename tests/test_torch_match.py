@@ -140,9 +140,53 @@ def test_match_scan_equals_jax(case):
     assert fused_match.LAUNCHES["exact_scan"] == 0   # CPU: plain version
 
 
+def _mixed_scan(rng, S, H):
+    """A mixed exact_scan problem at any (S, H): gpu and unique-group
+    jobs, gpu and slot-exhausted hosts, 2% forbidden."""
+    jb = jmatch.make_jobs(
+        mem=rng.uniform(1, 30, S).astype(np.float32),
+        cpus=rng.uniform(0.5, 6, S).astype(np.float32),
+        gpus=np.where(rng.random(S) < 0.1, 1.0, 0.0).astype(np.float32),
+        unique_group=rng.random(S) < 0.3, group=np.zeros(S, np.int32))
+    hb = jmatch.make_hosts(
+        mem=rng.uniform(10, 40, H).astype(np.float32),
+        cpus=rng.uniform(2, 12, H).astype(np.float32),
+        gpus=np.where(rng.random(H) < 0.05, 2.0, 0.0).astype(np.float32),
+        task_slots=rng.integers(0, 3, H).astype(np.int32))
+    return jb, hb, rng.random((S, H)) < 0.02
+
+
 def _adversarial(case):
+    """(jobs, hosts, forbidden, S, H, occ0) of one exact_scan case: the
+    cluster kernel's edges (one host, a few hosts over many CTAs, one
+    warp of hosts per CTA, more hosts than fit on chip, one host taking
+    every job, unique jobs against occupied hosts) and the one-block
+    kernel's (ties, nothing feasible, H off every tile size)."""
     rng = np.random.default_rng(11)
-    if case == "all_tie":
+    occ0 = None
+    shapes = {"h1": (8, 1), "h33": (8, 33), "h512": (256, 512),
+              "h100000": (8, 100_000)}
+    if case in shapes:
+        S, H = shapes[case]
+        jb, hb, forb = _mixed_scan(rng, S, H)
+    elif case == "one_host":
+        # host 300 starts fuller than the rest, so the bin-packer sends it
+        # every job: each step must see the last step's depletion
+        S, H = 256, 512
+        mem = np.full(H, 1000.0, np.float32)
+        mem[300] = 600.0
+        jb = jmatch.make_jobs(mem=np.full(S, 1.5, np.float32),
+                              cpus=np.full(S, 0.25, np.float32))
+        hb = jmatch.make_hosts(mem=mem, cpus=np.full(H, 100.0, np.float32),
+                               task_slots=np.full(H, 1000, np.int32))
+        hb = hb._replace(cap_mem=np.full(H, 1000.0, np.float32))
+        forb = np.zeros((S, H), bool)
+    elif case == "unique_occ0":
+        S, H = 64, 512
+        jb, hb, forb = _mixed_scan(rng, S, H)
+        jb = jb._replace(unique_group=np.ones(S, bool))
+        occ0 = rng.random(H) < 0.3
+    elif case == "all_tie":
         S, H = 16, 256
         jb = jmatch.make_jobs(mem=np.full(S, 1.0, np.float32),
                               cpus=np.full(S, 1.0, np.float32))
@@ -159,28 +203,20 @@ def _adversarial(case):
         forb = np.ones((S, H), bool)
     else:   # H not a multiple of 1024 (nor of 32)
         S, H = 40, 1000
-        jb = jmatch.make_jobs(
-            mem=rng.uniform(1, 30, S).astype(np.float32),
-            cpus=rng.uniform(0.5, 6, S).astype(np.float32),
-            gpus=np.where(rng.random(S) < 0.1, 1.0, 0.0).astype(np.float32),
-            unique_group=rng.random(S) < 0.3, group=np.zeros(S, np.int32))
-        hb = jmatch.make_hosts(
-            mem=rng.uniform(10, 40, H).astype(np.float32),
-            cpus=rng.uniform(2, 12, H).astype(np.float32),
-            gpus=np.where(rng.random(H) < 0.05, 2.0, 0.0).astype(np.float32),
-            task_slots=rng.integers(0, 3, H).astype(np.int32))
-        forb = rng.random((S, H)) < 0.02
-    return jb, hb, forb, S, H
+        jb, hb, forb = _mixed_scan(rng, S, H)
+    return jb, hb, forb, S, H, occ0
 
 
-@pytest.mark.parametrize("case", ["all_tie", "all_infeasible", "h1000"])
+@pytest.mark.parametrize("case", ["all_tie", "all_infeasible", "h1000",
+                                  "h1", "h33", "h512", "h100000",
+                                  "one_host", "unique_occ0"])
 def test_exact_scan_adversarial(case):
-    jb, hb, forb, S, H = _adversarial(case)
-    carry = (hb.mem, hb.cpus, hb.gpus, hb.task_slots,
-             jnp.zeros((1, H), bool))
+    jb, hb, forb, S, H, occ0 = _adversarial(case)
+    occ = jnp.zeros((1, H), bool) if occ0 is None else jnp.asarray(occ0)[None]
+    carry = (hb.mem, hb.cpus, hb.gpus, hb.task_slots, occ)
     c_ref, ref_hosts = jmatch._scan_assign(
         jb, hb, jnp.asarray(forb), jnp.zeros((S, H), jnp.float32), 1, carry)
-    jp, hp = packed(jb, hb, H)
+    jp, hp = packed(jb, hb, H, occ0)
     jh, hout = fused_match.exact_scan(
         *convert.tensors((jp, hp, forb.astype(np.uint8)), "cpu"))
     np.testing.assert_array_equal(jh.numpy(), np.asarray(ref_hosts))
@@ -192,9 +228,16 @@ def test_exact_scan_adversarial(case):
         # each job takes the lowest-index host with the best fitness:
         # the first host fills up its 5 slots, then the next
         np.testing.assert_array_equal(jh.numpy(), np.arange(S) // 5)
+    np.testing.assert_array_equal(hout[fused_match.H_OCC0].numpy() > 0,
+                                  np.asarray(c_ref[4][0]))
     if case == "all_infeasible":
         assert (jh.numpy() == -1).all()
         np.testing.assert_array_equal(hout.numpy(), hp)
+    if case == "one_host":
+        assert (jh.numpy() == 300).all()
+    if case == "unique_occ0":
+        assert not occ0[jh.numpy()[jh.numpy() >= 0]].any()
+        assert (jh.numpy() >= 0).sum() > 10
 
 
 def test_exact_scan_gate():

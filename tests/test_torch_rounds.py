@@ -80,7 +80,8 @@ def run_both(jobs, hosts, forb, bonus, use_kernel=False, **kw):
         tmatch.make_hosts(**hosts, device="cpu"), torch.from_numpy(forb),
         bonus=None if bonus is None else torch.from_numpy(bonus),
         use_kernel=use_kernel, **kw)
-    assert fused_match.LAUNCHES == {"exact_scan": 0, "best_host": 0}
+    assert fused_match.LAUNCHES == {"exact_scan": 0, "best_host": 0,
+                                    "blocked_cumsum": 0}
     return jb, hb, ref, got
 
 
