@@ -5,7 +5,7 @@
 
 1. Prints the card's name and power limit (nvidia-smi) and exits non-zero
    when torch sees no CUDA device.
-2. Builds the three CUDA kernels from csrc/ (nvcc, first use, one
+2. Builds the four CUDA kernels from csrc/ (nvcc, first use, one
    process per source, all started together) and prints the build
    seconds and ptxas' register/shared-memory lines.
 3. Holds each kernel against its plain PyTorch version on the card:
@@ -22,9 +22,28 @@
      and (8192,): bit-equal to its plain version and across two runs.
    - best_host at D=1024 rows x H=16384 hosts (the batched path's dense
      prefix) on the same mix: no bonus at spread 0.2 and 0, and a
-     U(0, 0.5) bonus at spread 0; adversarial: all hosts identical (the
-     lowest index wins across every block), all rows infeasible,
-     H = 16411, N = 200. best_host must be equal and best_fit bit-equal.
+     U(0, 0.5) bonus at spread 0 and 0.2; adversarial: all hosts
+     identical (the lowest index wins across every tile), all rows
+     infeasible, H = 16411, N = 200; the tiling's edges: N = 1, H = 1,
+     N = 33 x H = 515 (ragged tiles, byte mask loads; also with a bonus
+     and the jitter together), a tie between hosts of three tiles (the
+     lowest wins), a negative bonus that pushes every feasible fit of
+     half the rows to <= -1.0 and the best host of the other half below
+     another, operands beyond [2^-60, 2^60] in some host tiles and rows
+     (negative used, capacities of 3 x 2^61 and 3 x 2^-62, no capacity
+     with memory free, demands of 1e-20 and 3 x 2^59: the kernel's
+     `__fdiv_rn` path beside its reciprocal path). best_host must be
+     equal and best_fit bit-equal.
+   - best_host's division (RN(a / b) from a reciprocal taken once per
+     host) against IEEE division (`__fdiv_rn`) at the first and last
+     2,048 b mantissas x every a mantissa: no pair may differ.
+   - ordered_scatter (the port's f32 scatter-add in XLA-CPU's update
+     order; it replaces no TPU kernel) at the main path's shapes: 8,192
+     bids over 16,384 hosts (k=3, the window rounds' depletion), 32,768
+     running tasks over 500 users (k=3, the quota usage, a tenth of them
+     one heavy user's) and 2,048 credits with duplicates over 16,384
+     hosts (onto a lane): bit-equal to its plain version and across two
+     runs; the longest run of each is printed.
    All kernels round every f32 op like their plain versions (no FMA
    contraction, IEEE division).
 4. The sequential path: a device-resident pool of 100,000 pending x
@@ -32,8 +51,9 @@
    C=1024 considered per cycle (the coordinator's sequential matcher),
    2% of pending jobs constrained, the ports and estimated-completion
    lanes on, no bonus. CYCLES cycles through `device_cycle`; the
-   exact_scan counter must rise by one per cycle and blocked_cumsum's
-   at least once per cycle (the rank). Checks: jobs matched,
+   exact_scan counter must rise by one per cycle, blocked_cumsum's at
+   least once per cycle (the rank) and ordered_scatter's at least once
+   per cycle (the quota usage, the credits). Checks: jobs matched,
    no host lane below -eps, matched rows invalid afterwards. The first
    REPLAY cycles are replayed from the same seed through the same entry
    point with the kernel wrappers routed to their plain versions;
@@ -43,9 +63,10 @@
    Rcap 32768, Hcap 16384), so the coordinator's choice is match_rounds
    with its 256-job exact head. BATCHED cycles with the kernels on; each
    must launch exact_scan once (the head), best_host at least once
-   (the dense rounds) and blocked_cumsum at least once (the rank, the
-   window rounds, the accept sums), keep every host lane >= -1e-6 and
-   slot count
+   (the dense rounds), blocked_cumsum at least once (the rank, the
+   window rounds, the accept sums) and ordered_scatter at least once
+   (the host depletion, the usage, the credits), keep every host lane
+   >= -1e-6 and slot count
    >= 0, leave no matched row valid, and show no head-of-line inversion
    at queue positions < head_exact (the host-side audit over the first
    AUDIT_WINDOW positions, whose whole count is printed). The first
@@ -56,10 +77,12 @@
    to the prefix readback, and the host clock around the whole cycle
    (including the workload's own bookkeeping); each kernel alone by CUDA
    events, exact_scan also at its dependency floor (S=1024 with one warp
-   of hosts per CTA, H = cluster x 32: `exact_scan_chain_floor_ms`) and
-   blocked_cumsum beside torch.cumsum; all beside the card's name and
-   power limit. Then one line {"kernels": [...]} (launches by path), the
-   nvidia-smi line, and last {"ok": true, "device": {...}}.
+   of hosts per CTA, H = cluster x 32: `exact_scan_chain_floor_ms`),
+   blocked_cumsum beside torch.cumsum and ordered_scatter beside float
+   `index_add_`; the host time each kernel wrapper takes per call
+   (enqueue, no sync); all beside the card's name and power limit. Then
+   one line {"kernels": [...]} (launches by path), the nvidia-smi line,
+   and last {"ok": true, "device": {...}}.
 
 Imports torch, numpy and cook_tpu_torch only. Any failure exits non-zero
 before the last line.
@@ -99,6 +122,8 @@ OPS_PER_PAIR = 17
 BH_OPS_HOST, BH_OPS_PAIR, BH_OPS_FIT, BH_OPS_JITTER, BH_OPS_BONUS = \
     5, 8, 8, 13, 1
 BH_HOST_ROWS = 9
+# b mantissas at each end of [1, 2) whose divisions are checked
+DIV_B = 2048
 # blocked_cumsum's timed shape: the batched rank's (Pcap, 2)
 CUMSUM_SHAPES = ((262144, 2), (131072, 2), (8192,))
 
@@ -117,17 +142,36 @@ def card_line():
 
 
 def cuda_ms(fn, reps):
+    """Device ms per call of `fn`, by CUDA events over `reps` calls. A
+    ~20 ms device sleep is queued first, so the host has enqueued the
+    calls before the first event runs and the events see device time,
+    not the wrappers' host time (which host_us reports)."""
     import torch
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(35_000_000)
     a.record()
     for _ in range(reps):
         fn()
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def host_us(fn, reps=200):
+    """Host microseconds per call of `fn` (the enqueue: allocation,
+    argument checks, the launch; no sync inside the timed loop)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
 
 
 def scan_problem(rng, S, H, device):
@@ -279,6 +323,120 @@ def check_adversarial(label, jp, hp, jh):
             fail("unique_occ0: a unique job shared or took an occupied host")
 
 
+def best_host_edges(device):
+    """(label, jp, hp, forb, bonus, spread) of best_host's tiling edges:
+    N = 1; H = 1; N = 33 x H = 515 (ragged row and host tiles, byte mask
+    loads), also with a bonus and the jitter together; a tie between
+    hosts 700, 1500 and 9000 (three host tiles)
+    that host 700 must win; a negative bonus (see check_best_host_edge);
+    operands beyond [2^-60, 2^60] (negative used, huge and tiny
+    capacities, no capacity, tiny and huge demands)."""
+    import torch
+    from cook_tpu_torch.ops import fused_match as fm
+
+    rng = np.random.default_rng(5)
+    out = [("n1", *scan_problem(rng, 1, H_MAIN, device), None, 0.2),
+           ("h1", *scan_problem(rng, 200, 1, device), None, 0.2),
+           ("n33_h515", *scan_problem(rng, 33, 515, device), None, 0.2)]
+    jp, hp, forb = scan_problem(rng, 33, 515, device)
+    out.append(("n33_h515_bonus", jp, hp, forb, torch.from_numpy(
+        rng.uniform(-0.5, 0.5, (33, 515)).astype(np.float32)).to(device),
+        0.2))
+    jp, hp, forb = identical_hosts(64, H_MAIN, device)
+    for h in (700, 1500, 9000):      # fuller: the best fit, all equal
+        hp[fm.H_MEM, h] = 8.0
+        hp[fm.H_CPUS, h] = 8.0
+    out.append(("tie_tiles", jp, hp, forb, None, 0.0))
+    jp, hp, forb = scan_problem(rng, 256, H_MAIN, device)
+    bonus = torch.from_numpy(rng.uniform(0, 0.5, (256, H_MAIN))
+                             .astype(np.float32)).to(device)
+    bonus[:128] = -3.0              # every feasible fit <= -1.0
+    _, best = fm.best_host_plain(jp, hp, forb, bonus, 0.0)
+    rows = torch.arange(128, 256, device=device)
+    ok = best[128:] >= 0            # the other half: its best host sinks
+    bonus[rows[ok], best[128:][ok].long()] = -3.0
+    out.append(("neg_bonus", jp, hp, forb, bonus, 0.0))
+    # operands outside [2^-60, 2^60]: free memory above the capacity
+    # (used < 0), capacities of 3 x 2^61 and 3 x 2^-62, a host without
+    # memory capacity but with memory; rows demanding 1e-20 memory or
+    # 3 x 2^59 cpus. Host tiles 1, 3, 5 and 7 of 128 hold one each, the
+    # others none; the odd rows are such rows, the even ones not.
+    jp, hp, forb = scan_problem(rng, 256, 2048, device)
+    for h, lane, v in ((130, fm.H_MEM, 300.0),
+                       (400, fm.H_CAP_MEM, 3 * 2.0 ** 61),
+                       (400, fm.H_MEM, 3 * 2.0 ** 61),
+                       (700, fm.H_CAP_CPUS, 3 * 2.0 ** -62),
+                       (900, fm.H_CAP_MEM, 0.0),
+                       (900, fm.H_MEM, 50.0)):
+        hp[lane, h] = v
+    jp[1::2, fm.J_MEM] = 1e-20
+    jp[1::4, fm.J_CPUS] = 3 * 2.0 ** 59
+    out.append(("wide_operands", jp, hp, forb, None, 0.2))
+    return out
+
+
+def check_best_host_edge(label, idx):
+    """The expected outcome of the edges with one (best_host on the card,
+    already equal to the plain version's)."""
+    if label == "tie_tiles" and not bool((idx == 700).all()):
+        fail("best_host tie_tiles: host 700 did not win the tie")
+    if label == "neg_bonus" and bool((idx[:128] >= 0).any()):
+        fail("best_host neg_bonus: a fit <= -1.0 was chosen")
+
+
+def scatter_cases(device):
+    """(label, out, idx, vals) of ordered_scatter at the main path's
+    shapes: the window rounds' host depletion (8,192 bids over 16,384
+    hosts, 10% not accepted, k=3), the quota usage (32,768 running tasks
+    over 500 users, 30% invalid, a tenth of them one heavy user's, k=3)
+    and the credits (2,048 slots with duplicates, half padding, onto a
+    16,384-host lane)."""
+    import torch
+
+    rng = np.random.default_rng(9)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    ti = lambda a: t(a.astype(np.int32))     # the main path's index type
+
+    def vals(n, k):
+        shape = (n,) if k == 1 else (n, k)
+        return (10.0 ** rng.uniform(-3, 3, shape)).astype(np.float32)
+
+    H, U = H_MAIN, 500
+    bids = np.where(rng.random(C_BATCHED) < 0.9,
+                    rng.integers(0, H, C_BATCHED), H)
+    users = np.where(rng.random(32768) < 0.1, 7, rng.integers(0, U, 32768))
+    users = np.where(rng.random(32768) < 0.3, U, users)
+    credit = np.where(np.arange(2048) < 1024, rng.integers(0, 800, 2048), H)
+    lane = rng.uniform(0, 256, H).astype(np.float32)
+    return [
+        ("bids_8192x16384", torch.zeros((H, 3), device=device), ti(bids),
+         t(vals(C_BATCHED, 3))),
+        ("usage_32768x500", torch.zeros((U, 3), device=device), ti(users),
+         t(vals(32768, 3))),
+        ("credits_2048x16384", t(lane), ti(credit), t(vals(2048, 1)))]
+
+
+def check_scatter(out, idx, vals, label):
+    """ordered_scatter vs its plain version, bit for bit, and run to run;
+    returns (max |diff|, the longest run: updates of one target)."""
+    import torch
+    from cook_tpu_torch.ops import segments as seg
+
+    a = seg.scatter_add_ordered_(out.clone(), idx, vals)
+    b = seg.scatter_add_ordered_(out.clone(), idx, vals)
+    p = seg.scatter_add_ordered_plain_(out.clone(), idx, vals)
+    torch.cuda.synchronize()
+    bits = lambda x: x.view(torch.int32)
+    if not torch.equal(bits(a), bits(p)):
+        fail(f"ordered_scatter {label}: not bit-equal to plain (max abs "
+             f"diff {float((a - p).abs().max())})")
+    if not torch.equal(bits(a), bits(b)):
+        fail(f"ordered_scatter {label}: two runs differ")
+    i = idx.cpu().numpy()
+    return float((a - p).abs().max()), \
+        int(np.bincount(i[(i >= 0) & (i < out.shape[0])]).max())
+
+
 def check_cumsum(x, label):
     """blocked_cumsum vs its plain version, bit for bit, and run to run."""
     import torch
@@ -310,13 +468,16 @@ def plain_kernels():
     from cook_tpu_torch.ops import fused_match as fm
     from cook_tpu_torch.ops import segments as seg
 
-    saved = fm.exact_scan, fm.best_host, seg.blocked_cumsum
+    saved = (fm.exact_scan, fm.best_host, seg.blocked_cumsum,
+             seg.scatter_add_ordered_)
     fm.exact_scan, fm.best_host = fm.exact_scan_plain, fm.best_host_plain
     seg.blocked_cumsum = seg.blocked_cumsum_plain
+    seg.scatter_add_ordered_ = seg.scatter_add_ordered_plain_
     try:
         yield
     finally:
-        fm.exact_scan, fm.best_host, seg.blocked_cumsum = saved
+        (fm.exact_scan, fm.best_host, seg.blocked_cumsum,
+         seg.scatter_add_ordered_) = saved
 
 
 def head_window_inversions(w, out, now_s):
@@ -480,7 +641,8 @@ def main():
     bh_err = 0.0
     for b, spread, label in ((None, 0.2, "mixed spread 0.2"),
                              (None, 0.0, "mixed spread 0"),
-                             (bonus, 0.0, "mixed bonus spread 0")):
+                             (bonus, 0.0, "mixed bonus spread 0"),
+                             (bonus, 0.2, "mixed bonus spread 0.2")):
         err, n, _ = check_best_host(jp, hp, forb, b, spread, label)
         bh_err = max(bh_err, err)
         if n == 0:
@@ -497,14 +659,71 @@ def main():
         a, b, c = scan_problem(np.random.default_rng(3), N_, H_, dev)
         err, _, _ = check_best_host(a, b, c, None, 0.2, f"{N_}x{H_}")
         bh_err = max(bh_err, err)
+    for label, a, b, c, bb, spread in best_host_edges(dev):
+        err, _, idx = check_best_host(a, b, c, bb, spread, label)
+        bh_err = max(bh_err, err)
+        check_best_host_edge(label, idx)
     print(json.dumps({"best_host_vs_plain": "equal", "max_abs_err": bh_err}),
           flush=True)
+    # its division, RN(a / b) from a per-host reciprocal, against IEEE
+    # division: the first and last 2,048 b mantissas x every a (the cuda
+    # test test_best_host_division_equals_ieee_on_cuda takes all 2^46)
+    div_bad = fm.best_host_division_mismatches(0, DIV_B) + \
+        fm.best_host_division_mismatches((1 << 23) - DIV_B, DIV_B)
+    print(json.dumps({"best_host_division_vs_fdiv_rn": {
+        "pairs": 2 * DIV_B << 23, "mismatches": div_bad}}), flush=True)
+    if div_bad:
+        fail(f"best_host division differs from IEEE division at {div_bad} "
+             f"mantissa pairs")
     # the main path's call: no bonus, spread 0.2
     bh_ms = cuda_ms(lambda: fm.best_host(jp, hp, forb, None, 0.2), 50)
     bh_plain_ms = cuda_ms(lambda: fm.best_host_plain(jp, hp, forb, None,
                                                      0.2), 5)
     bh_bonus_ms = cuda_ms(lambda: fm.best_host(jp, hp, forb, bonus, 0.0), 50)
     feas = int(fm.best_host_feasible(jp, hp, forb).sum())
+
+    # ---- 3b. ordered_scatter vs plain on the card --------------------------
+    sc_runs, sc_ms, sc_plain_ms, sc_lib_ms, sc_bound = {}, {}, {}, {}, {}
+    sc_args, sc_err = {}, 0.0
+    for label, o, i, v in scatter_cases(dev):
+        err, sc_runs[label] = check_scatter(o, i, v, label)
+        sc_err = max(sc_err, err)
+        sc_args[label] = (o, i, v)
+        T, k = o.shape[0], o[0].numel()
+        work = o.clone()
+        sc_ms[label] = cuda_ms(lambda: seg.scatter_add_ordered_(work, i, v),
+                               50)
+        sc_plain_ms[label] = cuda_ms(
+            lambda: seg.scatter_add_ordered_plain_(work, i, v), 3)
+        # the yardstick: float index_add_ onto a sink slot (any order)
+        sink = torch.zeros((T + 1,) + tuple(o.shape[1:]), device=dev)
+        lib_i = torch.where((i >= 0) & (i < T), i, T)
+        sc_lib_ms[label] = cuda_ms(lambda: sink.index_add_(0, lib_i, v), 50)
+        # the indices and values read once, each touched target read and
+        # written once; one add per value
+        n = i.shape[0]
+        touched = int(torch.unique(i[(i >= 0) & (i < T)]).numel())
+        sc_bound[label] = bound(
+            i.element_size() * n + 4 * v.numel() + 8 * k * touched,
+            v.numel())
+    print(json.dumps({"ordered_scatter_vs_plain": "bit-equal, run to run",
+                      "longest_run": sc_runs}), flush=True)
+    SC_MAIN = "bids_8192x16384"
+
+    # ---- 3c. host time of each wrapper per call (enqueue only) -------------
+    jh_, fb_ = jp[:HEAD_START].contiguous(), forb[:HEAD_START].contiguous()
+    o, i, v = sc_args[SC_MAIN]
+    wrapper_host_us = {
+        "exact_scan": host_us(lambda: fm.exact_scan(jh_, hp, fb_), 50),
+        "best_host": host_us(lambda: fm.best_host(jp, hp, forb, None, 0.2)),
+        "blocked_cumsum": host_us(lambda: seg.blocked_cumsum(xs[
+            CUMSUM_SHAPES[0]])),
+        "ordered_scatter": host_us(
+            lambda: seg.scatter_add_ordered_(o, i, v)),
+        "torch_add_reference": host_us(lambda: torch.add(o, 1.0)),
+    }
+    print(json.dumps({"wrapper_host_us_per_call": wrapper_host_us}),
+          flush=True)
     # jobs, the host rows read, the mask (and the bonus), the outputs
     bh_bytes = D * 8 * 4 + BH_HOST_ROWS * H_MAIN * 4 + D * H_MAIN + D * 8
     bh_ops = H_MAIN * BH_OPS_HOST + D * H_MAIN * BH_OPS_PAIR
@@ -539,7 +758,8 @@ def main():
             recorded.append((mat_idx, mat_host, out[8].cpu().numpy()))
     seq_launches = dict(fm.LAUNCHES)
     if seq_launches["exact_scan"] != CYCLES or seq_launches["best_host"] \
-            or seq_launches["blocked_cumsum"] < CYCLES:
+            or seq_launches["blocked_cumsum"] < CYCLES \
+            or seq_launches["ordered_scatter"] < CYCLES:
         fail(f"sequential path launches {seq_launches} in {CYCLES} cycles")
     if sum(matched) == 0:
         fail("the sequential cycles matched nothing")
@@ -566,7 +786,8 @@ def main():
             sequential_for(wb.C):
         fail(f"unexpected batched sizing {(rs.Pcap, rs.Rcap, rs.Hcap)}")
     b_recorded, b_host_ms, b_matched, b_phase = [], [], [], {}
-    bh_per_cycle, cs_per_cycle, inversions, why_counts = [], [], [], []
+    bh_per_cycle, cs_per_cycle, os_per_cycle = [], [], []
+    inversions, why_counts = [], []
     fm.reset_launches()
     for c in range(BATCHED):
         before = dict(fm.LAUNCHES)
@@ -578,17 +799,16 @@ def main():
         for k, v in wb.timing.items():
             b_phase.setdefault(k, []).append(v)
         b_matched.append(len(mat_idx))
-        d_scan = fm.LAUNCHES["exact_scan"] - before["exact_scan"]
-        d_bh = fm.LAUNCHES["best_host"] - before["best_host"]
-        d_cs = fm.LAUNCHES["blocked_cumsum"] - before["blocked_cumsum"]
-        bh_per_cycle.append(d_bh)
-        cs_per_cycle.append(d_cs)
-        if d_scan != 1:
-            fail(f"batched cycle {c}: exact_scan launched {d_scan} times")
-        if d_bh < 1:
-            fail(f"batched cycle {c}: best_host never launched")
-        if d_cs < 1:
-            fail(f"batched cycle {c}: blocked_cumsum never launched")
+        d = {k: fm.LAUNCHES[k] - before[k] for k in before}
+        bh_per_cycle.append(d["best_host"])
+        cs_per_cycle.append(d["blocked_cumsum"])
+        os_per_cycle.append(d["ordered_scatter"])
+        if d["exact_scan"] != 1:
+            fail(f"batched cycle {c}: exact_scan launched "
+                 f"{d['exact_scan']} times")
+        for k in ("best_host", "blocked_cumsum", "ordered_scatter"):
+            if d[k] < 1:
+                fail(f"batched cycle {c}: {k} never launched")
         check_cycle_state(wb, mat_idx, c, "batched")
         why_counts.append(np.bincount(out[8].cpu().numpy(),
                                       minlength=8).tolist())
@@ -605,6 +825,8 @@ def main():
     print(json.dumps({"batched_best_host_launches_per_cycle": bh_per_cycle,
                       "batched_blocked_cumsum_launches_per_cycle":
                           cs_per_cycle,
+                      "batched_ordered_scatter_launches_per_cycle":
+                          os_per_cycle,
                       "batched_head_window_inversions": inversions,
                       "batched_why_code_counts": why_counts,
                       "audit_window": AUDIT_WINDOW}), flush=True)
@@ -644,6 +866,7 @@ def main():
                     "C": C_BATCHED, "head_exact": HEAD_START,
                     "best_host_launches_per_cycle": bh_per_cycle,
                     "blocked_cumsum_launches_per_cycle": cs_per_cycle,
+                    "ordered_scatter_launches_per_cycle": os_per_cycle,
                     **cycle_stats(b_phase, b_host_ms, b_matched)},
         "exact_scan_cluster_ctas": cluster,
         "exact_scan_ms": kernel_ms,
@@ -664,10 +887,17 @@ def main():
         "blocked_cumsum_bound_ms": cs_bound_ms,
         "torch_cumsum_dim0_ms": cs_lib_ms,
         "torch_cumsum_transposed_ms": cs_lib_inner_ms,
+        "ordered_scatter_ms": sc_ms,
+        "ordered_scatter_plain_ms": sc_plain_ms,
+        "ordered_scatter_bound_ms": {k: v[0] for k, v in sc_bound.items()},
+        "index_add_ms": sc_lib_ms,
+        "ordered_scatter_longest_run": sc_runs,
+        "wrapper_host_us_per_call": wrapper_host_us,
         "library_note": "no single PyTorch call computes the sequential "
                         "scan or the masked fitness argmax; "
                         "torch.cumsum(x, 0) computes blocked_cumsum's "
-                        "function in another association",
+                        "function in another association, float "
+                        "index_add_ ordered_scatter's in no fixed order",
     }
     print(json.dumps(timings), flush=True)
     by_path = {k: {"sequential": seq_launches[k], "batched": b_launches[k]}
@@ -697,7 +927,20 @@ def main():
          "max_abs_err": cs_err, "ms": cs_ms, "plain_ms": cs_plain_ms,
          "bound_ms": cs_bound_ms, "bound_by": cs_bound_by,
          "library_ms": cs_lib_ms,
-         "shape": list(CUMSUM_SHAPES[0])}]}), flush=True)
+         "shape": list(CUMSUM_SHAPES[0])},
+        {"name": "ordered_scatter", "route": "cuda",
+         "source": "cook_tpu_torch/csrc/ordered_scatter.cu",
+         "replaces": "none: jax.ops.segment_sum / .at[].add "
+                     "(cook_tpu/ops/match.py:490-497, ops/cycle.py:173-179, "
+                     "scheduler/resident.py:157-159)",
+         "launches": sum(by_path["ordered_scatter"].values()),
+         "launches_by_path": by_path["ordered_scatter"],
+         "max_abs_err": sc_err, "ms": sc_ms[SC_MAIN],
+         "plain_ms": sc_plain_ms[SC_MAIN],
+         "bound_ms": sc_bound[SC_MAIN][0],
+         "bound_by": sc_bound[SC_MAIN][1],
+         "library_ms": sc_lib_ms[SC_MAIN], "case": SC_MAIN,
+         "longest_run": sc_runs[SC_MAIN]}]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

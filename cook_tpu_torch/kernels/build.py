@@ -7,6 +7,7 @@ ctypes: every pointer and the stream are passed as c_void_p. Only
 sources in this package are compiled.
 
     python -m cook_tpu_torch.kernels.build      # build every kernel
+    python -m cook_tpu_torch.kernels.build --sass best_host   # its SASS
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-KERNELS = ("exact_scan", "best_host", "blocked_cumsum")
+KERNELS = ("exact_scan", "best_host", "blocked_cumsum", "ordered_scatter")
 
 # argtypes of the C functions each kernel's library exports (all return
 # int)
@@ -35,12 +36,17 @@ _SIGNATURES = {
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         "exact_scan_cluster": []},
     "best_host": {
-        "best_host_launch": [ctypes.c_void_p] * 6 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]},
+        "best_host_launch": [ctypes.c_void_p] * 7 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+        "best_host_div_check": [ctypes.c_uint, ctypes.c_uint,
+                                ctypes.c_void_p, ctypes.c_void_p]},
     "blocked_cumsum": {
         "blocked_cumsum_launch": [ctypes.c_void_p] * 3 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]},
+    "ordered_scatter": {
+        "ordered_scatter_launch": [ctypes.c_void_p] * 4 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]},
 }
 
 _lock = threading.Lock()
@@ -123,7 +129,23 @@ def load(name: str) -> ctypes.CDLL:
         return _loaded[name]
 
 
+def sass_listing(name: str) -> str:
+    """The sm_90a SASS of a built kernel (cuobjdump -sass; "" where the
+    toolkit has no cuobjdump)."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return ""
+    return subprocess.run([str(tool), "-sass", str(_target(name)[1])],
+                          capture_output=True, text=True, check=True).stdout
+
+
 if __name__ == "__main__":
+    import sys
+
+    if sys.argv[1:2] == ["--sass"]:     # --sass NAME: print the listing
+        build_all((sys.argv[2],))
+        print(sass_listing(sys.argv[2]))
+        sys.exit(0)
     for k, s in build_all().items():
         print(f"{k}: {s:.1f} s")
         print(build_log.get(k, ""))

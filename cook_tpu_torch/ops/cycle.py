@@ -28,6 +28,7 @@ import torch
 from cook_tpu_torch.obs import decisions as why_codes
 from cook_tpu_torch.ops import dru as dru_ops
 from cook_tpu_torch.ops import match as match_ops
+from cook_tpu_torch.ops import segments
 from cook_tpu_torch.ops.segments import segment_cumsum
 
 I32_MAX = torch.iinfo(torch.int32).max
@@ -129,16 +130,15 @@ def rank_and_match(
     queue_rank[queue_perm] = arP
 
     # ---- 2. considerable filter (quota + cap) ------------------------
-    run_seg = torch.where(run_valid, run_user, U).long()
-
-    def usage(vals):
-        out = torch.zeros(U + 1, dtype=torch.float32, device=dev)
-        return out.index_add_(0, run_seg,
-                              torch.where(run_valid, vals, 0.0))[:U]
-
-    u_mem = usage(run_mem)
-    u_cpus = usage(run_cpus)
-    u_cnt = usage(torch.ones(R, dtype=torch.float32, device=dev))
+    # running usage per user: the reference's three segment_sums (each
+    # user's tasks added in row order), one column each; segment U, the
+    # invalid rows, is dropped
+    usage = segments.scatter_add_ordered_(
+        torch.zeros((U, 3), device=dev), torch.where(run_valid, run_user, U),
+        torch.stack([torch.where(run_valid, run_mem, 0.0),
+                     torch.where(run_valid, run_cpus, 0.0),
+                     run_valid.to(torch.float32)], -1))
+    u_mem, u_cpus, u_cnt = usage[:, 0], usage[:, 1], usage[:, 2]
 
     # cumulative pending demand per user in queue order
     q_user = pend_user[queue_perm]

@@ -37,7 +37,8 @@ J_MEM, J_CPUS, J_GPUS, J_ACTIVE, J_UNIQUE = range(5)
 JOB_COLS = 8
 
 # kernel launches by name, counted by the wrapper where it launches
-LAUNCHES = {"exact_scan": 0, "best_host": 0, "blocked_cumsum": 0}
+LAUNCHES = {"exact_scan": 0, "best_host": 0, "blocked_cumsum": 0,
+            "ordered_scatter": 0}
 
 
 def reset_launches() -> None:
@@ -250,10 +251,11 @@ def best_host_ok(num_groups: int) -> bool:
     The TPU gates do not carry over. `N % bn`, `H % bh` and `H % 128`
     (pallas_match.py:304-309) and the `_D`/`H` divisibility conditions
     of match.py:410-413 came from BlockSpec tiles of (8, 128)-aligned
-    VMEM blocks; the CUDA kernel gives each block a few rows, strides
-    its threads over the hosts and masks the ragged row group itself,
-    so any N and H work. The remaining limits are index widths (i32
-    host ids, i64 mask offsets), checked by the wrapper.
+    VMEM blocks; the CUDA kernel tiles rows and hosts itself and masks
+    the ragged edges (an H that is not a multiple of 16 takes byte mask
+    loads), so any N and H work. The remaining limits are index widths
+    (i32 host ids, i64 mask offsets, at most 65,535 tiles of 128 hosts),
+    checked by the wrapper.
     """
     return num_groups == 1
 
@@ -312,13 +314,16 @@ def _best_host_cuda(jobs_packed, hosts_packed, forb, bonus, spread):
         raise ValueError("best_host: all inputs must be on one device")
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("best_host: inputs must be contiguous")
-    if not (N >= 1 and 1 <= H < 2 ** 31):
+    if not (N >= 1 and 1 <= H <= 65535 * 128):
         raise ValueError(f"best_host: N={N}, H={H} out of range")
     if forb.dtype == torch.bool:
         forb = forb.view(torch.uint8)
     lib = build.load("best_host")
     best_fit = torch.empty(N, dtype=torch.float32, device=dev)
     best_idx = torch.empty(N, dtype=torch.int32, device=dev)
+    # each row's argmax slot and the kernel's CTA counter (zeroed by the
+    # launch function on the stream)
+    scratch = torch.empty(N + 1, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.best_host_launch(
@@ -328,6 +333,7 @@ def _best_host_cuda(jobs_packed, hosts_packed, forb, bonus, spread):
             ctypes.c_void_p(None if bonus is None else bonus.data_ptr()),
             ctypes.c_void_p(best_fit.data_ptr()),
             ctypes.c_void_p(best_idx.data_ptr()),
+            ctypes.c_void_p(scratch.data_ptr()),
             ctypes.c_int(N), ctypes.c_int(H), ctypes.c_float(spread),
             ctypes.c_void_p(stream))
     if rc != 0:
@@ -335,6 +341,30 @@ def _best_host_cuda(jobs_packed, hosts_packed, forb, bonus, spread):
                            f"{rc}")
     LAUNCHES["best_host"] += 1
     return best_fit, best_idx
+
+
+def best_host_division_mismatches(b0: int = 0, nb: int = 1 << 23) -> int:
+    """How often best_host's division, RN(a / b) from a reciprocal taken
+    once per host, differs from IEEE division (`__fdiv_rn`) over the b
+    mantissas [b0, b0 + nb) x every a mantissa (a, b in [1, 2)); the
+    default covers every pair, 2^46 of them. The kernel uses it only
+    where both scale by powers of two without rounding, so 0 here holds
+    it for every pair it divides. Runs on the current CUDA device and
+    reads the count back."""
+    from cook_tpu_torch.kernels import build
+
+    lib = build.load("best_host")
+    bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    step = 1 << 16
+    for b in range(b0, b0 + nb, step):
+        rc = lib.best_host_div_check(b, min(step, b0 + nb - b),
+                                     ctypes.c_void_p(bad.data_ptr()),
+                                     ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(f"best_host_div_check launch failed: CUDA "
+                               f"error {rc}")
+    return int(bad.item())
 
 
 def best_host_feasible(jobs_packed: torch.Tensor, hosts_packed: torch.Tensor,

@@ -31,9 +31,8 @@ import numpy as np
 import torch
 
 from cook_tpu_torch.device import resolve_device
-from cook_tpu_torch.ops import fused_match
-from cook_tpu_torch.ops.segments import (cumsum0, segment_cumsum,
-                                         segment_sum_scan)
+from cook_tpu_torch.ops import fused_match, segments
+from cook_tpu_torch.ops.segments import cumsum0, segment_cumsum
 
 NO_HOST = -1
 BIG = 3.4e38        # sort key that puts unusable hosts / jobs last
@@ -191,21 +190,13 @@ def match_scan(jobs: Jobs, hosts: Hosts, forbidden: torch.Tensor,
 
 def _host_sums(acc_host, vals, H):
     """Per-host sums (H, k) of the rows of `vals` (n, k) f32 at acc_host
-    (n,) in [0, H] (H = dropped). Each host's rows are added in one fixed
-    order, whatever the device and the magnitudes: rows stably sorted by
-    host, `segment_sum_scan` over them, read at each host's last row.
+    (n,) in [0, H] (H = dropped): the reference's `jax.ops.segment_sum`
+    from zeros, each host's rows added in row order, on every device
     (`index_add_` of floats on CUDA adds in no fixed order: the kernel
     run and the plain replay could deplete a host differently, and a
-    later round then choose another host.)"""
-    perm = torch.argsort(acc_host, stable=True)
-    seg = acc_host[perm]
-    sums = segment_sum_scan(vals[perm], seg)
-    last = torch.ones_like(seg, dtype=torch.bool)
-    last[:-1] = seg[:-1] != seg[1:]
-    out = torch.zeros((H + 1, vals.shape[1]), dtype=vals.dtype,
-                      device=vals.device)
-    out[torch.where(last, seg, H)] = sums
-    return out[:H]
+    later round then choose another host)."""
+    return segments.scatter_add_ordered_(
+        vals.new_zeros((H, vals.shape[1])), acc_host, vals)
 
 
 def compute_accept(state, choice, bids, jmem, jcpus, jgpus, jgroup,
@@ -263,7 +254,7 @@ def apply_accept(state, choice, accept, jmem, jcpus, jgpus, jgroup,
         buf = torch.cat([job_host, job_host.new_full((1,), NO_HOST)])
         buf[torch.where(accept, row_idx, N).long()] = choice32
         new_host = buf[:N]
-    acc_host = torch.where(accept, choice, H).long()
+    acc_host = torch.where(accept, choice32, H)
     used = _host_sums(acc_host, torch.where(
         accept[:, None], torch.stack([jmem, jcpus, jgpus], -1), 0.0), H)
     slots = torch.zeros(H + 1, dtype=torch.int32, device=accept.device)

@@ -158,26 +158,102 @@ def segment_cumsum(values: torch.Tensor, seg_ids: torch.Tensor) -> torch.Tensor:
     return total - base
 
 
-def segment_sum_scan(values: torch.Tensor,
-                     seg_ids: torch.Tensor) -> torch.Tensor:
-    """Inclusive segmented sum over run-contiguous `seg_ids`, added in
-    one fixed order on every device: a doubling scan in which each step
-    adds to every row the partial sum `off` rows back when that row lies
-    in the same segment (off = 1, 2, 4, ...; log2 n steps of elementwise
-    ops). The last row of each segment holds the segment's sum. Unlike
-    `segment_cumsum` it does not cancel across segments, and it does not
-    rest on a float cumsum, which PyTorch does not order
-    deterministically on CUDA. The leading axis is the scan axis."""
-    n = values.shape[0]
-    off = 1
-    while off < n:
-        same = seg_ids[off:] == seg_ids[:-off]
-        if values.dim() > 1:
-            same = same[:, None]
-        values = torch.cat([values[:off], torch.where(
-            same, values[off:] + values[:-off], values[off:])])
-        off *= 2
-    return values
+def _check_scatter(out, idx, vals):
+    if out.dtype != torch.float32 or vals.dtype != torch.float32:
+        raise TypeError(f"scatter_add_ordered: float32 only, got "
+                        f"{out.dtype} += {vals.dtype}")
+    if idx.dim() != 1 or vals.shape[:1] != idx.shape or \
+            out.shape[1:] != vals.shape[1:] or out.dim() not in (1, 2):
+        raise ValueError(
+            f"scatter_add_ordered shapes: out {tuple(out.shape)}, idx "
+            f"{tuple(idx.shape)}, vals {tuple(vals.shape)}")
+    if idx.is_floating_point() or idx.dtype == torch.bool:
+        raise TypeError(f"scatter_add_ordered: integer indices, got "
+                        f"{idx.dtype}")
+
+
+def scatter_add_ordered_(out: torch.Tensor, idx: torch.Tensor,
+                         vals: torch.Tensor) -> torch.Tensor:
+    """In place: out[t] += vals[j] for every j with idx[j] == t, one
+    round-to-nearest f32 add at a time in increasing j (update order),
+    for t in [0, T = out.shape[0]); other indices are dropped. This is
+    the order of XLA-CPU's scatter-add (`jax.ops.segment_sum`,
+    `.at[].add`), which tests/test_torch_scatter.py pins bit for bit:
+    from zeros it is `jax.ops.segment_sum(vals, idx, T)` (a negative
+    index dropped too), onto a lane `lane.at[idx].add(vals, mode="drop")`
+    for indices >= 0. out (T,) or (T, k), vals (n,) or (n, k), idx (n,)
+    integer. CUDA tensors launch csrc/ordered_scatter.cu (float
+    `index_add_` on CUDA adds in whatever order its atomics land); CPU
+    tensors run the plain version; anything else raises. Returns out."""
+    dev = out.device
+    if dev.type == "cpu":
+        return scatter_add_ordered_plain_(out, idx, vals)
+    if dev.type != "cuda":
+        raise ValueError(f"scatter_add_ordered: unsupported device {dev}")
+    return _scatter_add_ordered_cuda(out, idx, vals)
+
+
+def scatter_add_ordered_plain_(out: torch.Tensor, idx: torch.Tensor,
+                               vals: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, on any device: the same adds
+    in the same order. A stable sort makes each target's updates one run
+    in update order; step r then adds the r-th update of every target
+    (each target at most once a step, so no float accumulation order is
+    left to the device). It reads the run lengths back to the host (two
+    syncs on CUDA) and takes one step per update of the longest run."""
+    _check_scatter(out, idx, vals)
+    T = out.shape[0]
+    if idx.shape[0] == 0 or T == 0:
+        return out
+    skey, perm = torch.sort(idx.long(), stable=True)
+    rank = torch.arange(idx.shape[0], device=idx.device) \
+        - segment_start_index(segment_starts(skey))
+    ok = (skey >= 0) & (skey < T)
+    rank, tgt, v = rank[ok], skey[ok], vals[perm[ok]]
+    by_rank = torch.argsort(rank, stable=True)
+    tgt, v = tgt[by_rank], v[by_rank]
+    s = 0
+    for c in torch.bincount(rank).tolist():
+        t = tgt[s:s + c]
+        out[t] = out[t] + v[s:s + c]
+        s += c
+    return out
+
+
+def _scatter_add_ordered_cuda(out, idx, vals):
+    from cook_tpu_torch.kernels import build
+    from cook_tpu_torch.ops.fused_match import LAUNCHES
+
+    _check_scatter(out, idx, vals)
+    if idx.device != out.device or vals.device != out.device:
+        raise ValueError("scatter_add_ordered: all inputs must be on one "
+                         "device")
+    if not (out.is_contiguous() and vals.is_contiguous()):
+        raise ValueError("scatter_add_ordered: out and vals must be "
+                         "contiguous")
+    n, T = idx.shape[0], out.shape[0]
+    k = 1 if out.dim() == 1 else out.shape[1]
+    if n == 0 or T == 0 or k == 0:
+        return out
+    if not (n < 2 ** 31 and T < 2 ** 31 and k <= 4):
+        raise ValueError(f"scatter_add_ordered: n={n}, T={T}, k={k} out of "
+                         f"range")
+    # int32 keys (half the radix passes of int64); wider indices are
+    # clamped into [-1, T] first, which drops the same updates
+    key = torch.clamp(idx, -1, T) if idx.dtype == torch.int64 else idx
+    skey, perm = torch.sort(key.to(torch.int32), stable=True)
+    lib = build.load("ordered_scatter")
+    dev = out.device
+    with torch.cuda.device(dev):
+        rc = lib.ordered_scatter_launch(
+            skey.data_ptr(), perm.data_ptr(), vals.data_ptr(),
+            out.data_ptr(), n, T, k,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ordered_scatter kernel launch failed: CUDA "
+                           f"error {rc}")
+    LAUNCHES["ordered_scatter"] += 1
+    return out
 
 
 def segment_rank(seg_ids: torch.Tensor) -> torch.Tensor:

@@ -14,8 +14,8 @@ head and dense rounds), runs 3 warm-up cycles, then:
    from the upload to the readback (event);
 2. 4 cycles under torch.profiler: device time per cycle summed over
    kernels, the device's idle share of the profiled wall time, the
-   kernels ranked by device time (exact_scan's, best_host's and
-   blocked_cumsum's named),
+   kernels ranked by device time (exact_scan's, best_host's,
+   blocked_cumsum's and ordered_scatter's named),
    and the host syncs per cycle (CUDA stream/device synchronisations;
    `.item()`-style reads, `nonzero` and the prefix readback each make
    one);
@@ -128,6 +128,7 @@ def main(argv=None) -> dict:
     bh = [k for k in kernels if "best_host" in k[0]]
     bh_ms = sum(k[1] for k in bh)
     cs = [k for k in kernels if "blocked_cumsum" in k[0]]
+    osc = [k for k in kernels if "ordered_scatter" in k[0]]
     sync_sources = _sync_sources(w)
     if a.trace:
         os.makedirs(a.trace, exist_ok=True)
@@ -153,6 +154,8 @@ def main(argv=None) -> dict:
         "best_host_share_of_device": bh_ms / dev_ms if dev_ms else None,
         "blocked_cumsum_ms_per_cycle": sum(k[1] for k in cs),
         "blocked_cumsum_calls_per_cycle": sum(k[2] for k in cs),
+        "ordered_scatter_ms_per_cycle": sum(k[1] for k in osc),
+        "ordered_scatter_calls_per_cycle": sum(k[2] for k in osc),
         "host_syncs_per_cycle": sum(
             v for k, v in syncs.items() if k.startswith("cuda")),
         "sync_events_per_cycle": syncs,

@@ -28,6 +28,7 @@ import torch
 from cook_tpu_torch.device import resolve_device
 from cook_tpu_torch.ops import cycle as cycle_ops
 from cook_tpu_torch.ops import match as match_ops
+from cook_tpu_torch.ops import segments
 from cook_tpu_torch.scheduler.tensorize import F32_MAX
 
 # field order is the wire format of a pend-row delta
@@ -85,10 +86,17 @@ def _apply_run(run, idx, rf, ri):
 
 
 def _apply_credit(host, idx, cf, ci):
+    """Additive credits, `.at[idx].add(mode="drop")` as the reference:
+    the f32 lanes add each host's credits in update order, the three in
+    one ordered scatter (one sort) on an (Hcap, 3) copy without the sink
+    slot, so idx == Hcap is dropped; the integer lanes are exact in any
+    order."""
+    names = ("mem", "cpus", "gpus")
+    lanes = torch.stack([host[n][:-1] for n in names], -1)
+    segments.scatter_add_ordered_(lanes, idx, cf.t().contiguous())
+    for k, n in enumerate(names):
+        host[n][:-1].copy_(lanes[:, k])
     idx = idx.long()
-    host["mem"].index_add_(0, idx, cf[0])
-    host["cpus"].index_add_(0, idx, cf[1])
-    host["gpus"].index_add_(0, idx, cf[2])
     host["task_slots"].index_add_(0, idx, ci[0])
     host["ports"].index_add_(0, idx, ci[1])
 

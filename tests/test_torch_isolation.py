@@ -5,9 +5,11 @@
 * entry points default to CUDA and raise when it is absent;
 * on a CUDA tensor each kernel wrapper launches its kernel and never
   reaches its plain version, and agrees with that plain version (the
-  cluster exact_scan at its edge shapes; blocked_cumsum bit for bit and
-  from run to run); the batched matcher's host depletion is
-  bit-reproducible there (needs the card; skipped without one).
+  cluster exact_scan at its edge shapes; best_host at its tiling's
+  edges; blocked_cumsum and ordered_scatter bit for bit and from run to
+  run); the batched matcher's host depletion, through ordered_scatter,
+  is bit-reproducible there and equal to the CPU's (needs the card;
+  skipped without one).
 """
 import ast
 import os
@@ -220,7 +222,7 @@ def test_best_host_kernel_equals_plain_on_cuda(monkeypatch):
                       t(rng.random(N) < 0.2))
     forb = t((rng.random((N, H)) < 0.1).astype(np.uint8))
     bonus = t(rng.uniform(0, 0.5, (N, H)).astype(np.float32))
-    for b, spread in ((None, 0.2), (None, 0.0), (bonus, 0.0)):
+    for b, spread in ((None, 0.2), (None, 0.0), (bonus, 0.0), (bonus, 0.2)):
         want = fm.best_host_plain(jp, hp, forb, b, spread)
         before = fm.LAUNCHES["best_host"]
         with monkeypatch.context() as m:
@@ -271,13 +273,84 @@ def test_round_glue_does_not_sync_on_cuda():
 
 
 @pytest.mark.cuda
-def test_host_depletion_is_bit_reproducible_on_cuda():
-    """apply_accept's per-host depletion of demands spanning 2**30 (wider
-    than any f32 sum is exact over) gives bit-equal host lanes in two
-    runs on the card, and the same bits as the call on the CPU: each
-    host's demands are added in one fixed order on every device."""
+def test_best_host_tiling_edges_on_cuda():
+    """best_host against its plain version at chip_smoke.py's tiling
+    edges: N = 1, H = 1, ragged N = 33 x H = 515 (byte mask loads), a tie
+    between hosts of three tiles won by the lowest index, a negative
+    bonus that pushes feasible fits to <= -1.0, and operands beyond
+    [2^-60, 2^60] in some host tiles and rows (those pairs divide with
+    `__fdiv_rn`, the others by the per-host reciprocal)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: runs on the GPU machine only")
+    import chip_smoke
+    from cook_tpu_torch.ops import fused_match as fm
+
+    for label, jp, hp, forb, bonus, spread in chip_smoke.best_host_edges(
+            torch.device("cuda")):
+        got = fm.best_host(jp, hp, forb, bonus, spread)
+        want = fm.best_host_plain(jp, hp, forb, bonus, spread)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1]), label
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32)), label
+        chip_smoke.check_best_host_edge(label, got[1])
+
+
+@pytest.mark.cuda
+def test_best_host_division_equals_ieee_on_cuda():
+    """best_host's division (a per-host reciprocal and one correction)
+    equals IEEE division at every one of the 2^46 pairs of mantissas
+    (~50 s on an H100); chip_smoke.py checks the first and last 2,048 b
+    mantissas x every a."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs on the GPU machine only")
+    from cook_tpu_torch.ops import fused_match as fm
+
+    assert fm.best_host_division_mismatches() == 0
+
+
+@pytest.mark.cuda
+def test_ordered_scatter_kernel_equals_plain_on_cuda(monkeypatch):
+    """The ordered f32 scatter-add kernel is bit-equal to its plain
+    version (which tests/test_torch_scatter.py holds bit-equal to
+    XLA-CPU's segment_sum / .at[].add) and to itself from run to run, at
+    the main path's shapes: 8,192 bids over 16,384 hosts (k=3), 32,768
+    running tasks over 500 users (k=3), 2,048 credits with duplicates
+    onto a 16,384-host lane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs on the GPU machine only")
+    import chip_smoke
+    from cook_tpu_torch.ops import fused_match as fm
+    from cook_tpu_torch.ops import segments
+
+    bits = lambda t: t.view(torch.int32)
+    for label, out, idx, vals in chip_smoke.scatter_cases(
+            torch.device("cuda")):
+        want = segments.scatter_add_ordered_plain_(out.clone(), idx, vals)
+        before = fm.LAUNCHES["ordered_scatter"]
+        with monkeypatch.context() as m:
+            m.setattr(segments, "scatter_add_ordered_plain_", None)
+            first = segments.scatter_add_ordered_(out.clone(), idx, vals)
+            second = segments.scatter_add_ordered_(out.clone(), idx, vals)
+        torch.cuda.synchronize()
+        assert fm.LAUNCHES["ordered_scatter"] == before + 2
+        assert torch.equal(bits(first), bits(want)), label
+        assert torch.equal(bits(first), bits(second)), label
+        ref = segments.scatter_add_ordered_plain_(out.cpu(), idx.cpu(),
+                                                  vals.cpu())
+        assert torch.equal(bits(first.cpu()), bits(ref)), label
+
+
+@pytest.mark.cuda
+def test_host_depletion_is_bit_reproducible_on_cuda():
+    """apply_accept's per-host depletion of demands spanning 2**30 (wider
+    than any f32 sum is exact over) goes through the ordered_scatter
+    kernel on the card and gives bit-equal host lanes in two runs there,
+    and the same bits as the call on the CPU (XLA's update order,
+    `segments.scatter_add_ordered_`, on every device)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs on the GPU machine only")
+    from cook_tpu_torch.ops import fused_match as fm
     from cook_tpu_torch.ops import match
 
     rng = np.random.default_rng(11)
@@ -300,7 +373,9 @@ def test_host_depletion_is_bit_reproducible_on_cuda():
             tuple(t(a) for a in arrays["state"]), t(arrays["choice"]),
             t(arrays["accept"]), *(t(a) for a in arrays["jobs"]), 1)
 
+    before = fm.LAUNCHES["ordered_scatter"]
     first, second = run("cuda"), run("cuda")
+    assert fm.LAUNCHES["ordered_scatter"] == before + 2
     on_cpu = run("cpu")
     for lane in (1, 2, 3, 4):
         assert torch.equal(first[lane], second[lane])

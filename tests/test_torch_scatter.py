@@ -1,0 +1,118 @@
+"""The port's f32 scatter-add (cook_tpu_torch/ops/segments.py::
+scatter_add_ordered_, the ordered_scatter kernel's function) against
+XLA-CPU's, bit for bit: `jax.ops.segment_sum` (the batched matcher's host
+depletion and the quota usage sums of the JAX package) and
+`.at[idx].add(mode="drop")` (its resident credit scatter).
+
+XLA-CPU adds each update to its target one at a time in update order;
+the port adds in that order on every device. Inputs are non-dyadic, of
+mixed signs and magnitudes 10**U(-3, 3), so any other order shows in the
+last bits. Half the updates go to three hot targets; indices fall
+outside [0, T) on both sides (segment_sum drops them; `.at[]` wraps a
+negative index, so its cases use none). If jax is upgraded, run this
+file first: it says whether XLA's scatter order moved.
+
+Tolerance: none (bit-equal).
+"""
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from cook_tpu_torch.ops import fused_match
+from cook_tpu_torch.ops import segments as tseg
+
+NS = (1, 7, 2048, 8192, 32768)
+TS = (1, 300, 500, 16384)
+
+
+def _inputs(n, T, k, low, seed):
+    rng = np.random.default_rng(seed)
+    shape = (n,) if k == 1 else (n, k)
+    vals = (10.0 ** rng.uniform(-3, 3, shape)
+            * rng.choice([-1.0, 1.0], shape)).astype(np.float32)
+    hot = rng.integers(0, T, 3)
+    idx = np.where(rng.random(n) < 0.5, rng.choice(hot, n),
+                   rng.integers(low, T + 3, n)).astype(np.int32)
+    return idx, vals
+
+
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("T", TS)
+@pytest.mark.parametrize("n", NS)
+def test_segment_sum_order_equals_xla(n, T):
+    """scatter_add_ordered_ from zeros == jax.ops.segment_sum, 1-D and
+    (n, 3) values, negative and >= T indices dropped."""
+    for k in (1, 3):
+        idx, vals = _inputs(n, T, k, -2, seed=n * 7 + T + k)
+        ref = jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(idx),
+                                  num_segments=T)
+        got = tseg.scatter_add_ordered_(
+            torch.zeros(ref.shape), torch.from_numpy(idx),
+            torch.from_numpy(vals))
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(ref),
+                                      err_msg=f"k={k}")
+
+
+@pytest.mark.parametrize("T", TS)
+@pytest.mark.parametrize("n", NS)
+def test_at_add_order_equals_xla(n, T):
+    """scatter_add_ordered_ onto a base == base.at[idx].add(v,
+    mode="drop"), 1-D and (n, 3), indices >= T dropped; -0.0 in the base
+    survives where nothing lands."""
+    for k in (1, 3):
+        idx, vals = _inputs(n, T, k, 0, seed=n * 11 + T + k)
+        rng = np.random.default_rng(n + T + k)
+        base = (rng.uniform(-50, 50, (T,) if k == 1 else (T, k))
+                .astype(np.float32))
+        base.reshape(-1)[::7] = -0.0
+        ref = jnp.asarray(base).at[jnp.asarray(idx)].add(jnp.asarray(vals),
+                                                         mode="drop")
+        got = tseg.scatter_add_ordered_(torch.from_numpy(base.copy()),
+                                        torch.from_numpy(idx),
+                                        torch.from_numpy(vals))
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(ref),
+                                      err_msg=f"k={k}")
+
+
+def test_in_place_on_a_view_and_cpu_launches_nothing():
+    """scatter_add_ordered_ adds into the tensor it is given (the
+    resident credit lanes pass a view without their sink slot); on CPU
+    tensors it runs the plain version and counts no launch."""
+    idx, vals = _inputs(2048, 300, 1, 0, seed=3)
+    lane = torch.zeros(301)
+    fused_match.reset_launches()
+    out = tseg.scatter_add_ordered_(lane[:-1], torch.from_numpy(idx),
+                                    torch.from_numpy(vals))
+    assert out.data_ptr() == lane.data_ptr()
+    assert float(lane[-1]) == 0.0          # idx == 300 dropped, not sunk
+    ref = jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(idx),
+                              num_segments=300)
+    np.testing.assert_array_equal(_bits(lane[:-1].numpy()), _bits(ref))
+    assert fused_match.LAUNCHES["ordered_scatter"] == 0
+
+
+def test_scatter_checks():
+    z = torch.zeros(4)
+    with pytest.raises(TypeError):
+        tseg.scatter_add_ordered_(z.double(), torch.zeros(2, dtype=torch.long),
+                                  torch.zeros(2, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        tseg.scatter_add_ordered_(z, torch.zeros(3, dtype=torch.long),
+                                  torch.zeros(2))
+    with pytest.raises(TypeError):
+        tseg.scatter_add_ordered_(z, torch.zeros(2), torch.zeros(2))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tseg.scatter_add_ordered_(torch.zeros(4, device="meta"),
+                                  torch.zeros(2, dtype=torch.long,
+                                              device="meta"),
+                                  torch.zeros(2, device="meta"))
+    # nothing to add: the tensor comes back as it was
+    out = tseg.scatter_add_ordered_(z, torch.zeros(0, dtype=torch.long),
+                                    torch.zeros(0))
+    assert torch.equal(out, torch.zeros(4))
