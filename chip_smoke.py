@@ -5,7 +5,7 @@
 
 1. Prints the card's name and power limit (nvidia-smi) and exits non-zero
    when torch sees no CUDA device.
-2. Builds the four CUDA kernels from csrc/ (nvcc, first use, one
+2. Builds the five CUDA kernels from csrc/ (nvcc, first use, one
    process per source, all started together) and prints the build
    seconds and ptxas' register/shared-memory lines.
 3. Holds each kernel against its plain PyTorch version on the card:
@@ -19,7 +19,15 @@
      job_host must be equal and the (16, H) host stack bit-equal.
    - blocked_cumsum (the port's f32 prefix sum in XLA-CPU's
      association; it replaces no TPU kernel) at (262144, 2), (131072, 2)
-     and (8192,): bit-equal to its plain version and across two runs.
+     (a cluster of CTAs a column), (8192,) and (16384,) (one CTA), and at
+     its routes' edges (cumsum_edges: n = 1 with -0.0, 15, 16, 17, the
+     one-CTA limit and one past it, around full chunks, the cluster's
+     largest n and one past it, which takes the device-memory route;
+     k = 1..3; strided views): bit-equal to its plain version and across
+     two runs; both launch counters must move.
+   - sum_ordered (the f32 sum in XLA-CPU's association; the dense
+     round's window size) at D = 1,024 and H = 16,384 and the sizes of
+     sum_cases: bit-equal to its plain version and across two runs.
    - best_host at D=1024 rows x H=16384 hosts (the batched path's dense
      prefix) on the same mix: no bonus at spread 0.2 and 0, and a
      U(0, 0.5) bonus at spread 0 and 0.2; adversarial: all hosts
@@ -42,8 +50,12 @@
      bids over 16,384 hosts (k=3, the window rounds' depletion), 32,768
      running tasks over 500 users (k=3, the quota usage, a tenth of them
      one heavy user's) and 2,048 credits with duplicates over 16,384
-     hosts (onto a lane): bit-equal to its plain version and across two
-     runs; the longest run of each is printed.
+     hosts (onto a lane), and at its edges (scatter_edges: all updates on
+     one target, all keys dropped, int64 keys beyond int32, k = 1..4,
+     many long runs, one update, the credits' transposed copy, and two
+     shapes beyond the one-launch route): bit-equal to its plain version
+     and across two runs; the longest run of each is printed; the
+     one-launch and the sorted route's counters must both move.
    All kernels round every f32 op like their plain versions (no FMA
    contraction, IEEE division).
 4. The sequential path: a device-resident pool of 100,000 pending x
@@ -53,7 +65,8 @@
    lanes on, no bonus. CYCLES cycles through `device_cycle`; the
    exact_scan counter must rise by one per cycle, blocked_cumsum's at
    least once per cycle (the rank) and ordered_scatter's at least once
-   per cycle (the quota usage, the credits). Checks: jobs matched,
+   per cycle (the quota usage, the credits); no call may take a route
+   for shapes beyond the on-chip designs. Checks: jobs matched,
    no host lane below -eps, matched rows invalid afterwards. The first
    REPLAY cycles are replayed from the same seed through the same entry
    point with the kernel wrappers routed to their plain versions;
@@ -64,8 +77,9 @@
    with its 256-job exact head. BATCHED cycles with the kernels on; each
    must launch exact_scan once (the head), best_host at least once
    (the dense rounds), blocked_cumsum at least once (the rank, the
-   window rounds, the accept sums) and ordered_scatter at least once
-   (the host depletion, the usage, the credits), keep every host lane
+   window rounds, the accept sums), ordered_scatter at least once
+   (the host depletion, the usage, the credits) and sum_ordered at
+   least once (the dense rounds' window size), keep every host lane
    >= -1e-6 and slot count
    >= 0, leave no matched row valid, and show no head-of-line inversion
    at queue positions < head_exact (the host-side audit over the first
@@ -78,9 +92,10 @@
    (including the workload's own bookkeeping); each kernel alone by CUDA
    events, exact_scan also at its dependency floor (S=1024 with one warp
    of hosts per CTA, H = cluster x 32: `exact_scan_chain_floor_ms`),
-   blocked_cumsum beside torch.cumsum and ordered_scatter beside float
-   `index_add_`; the host time each kernel wrapper takes per call
-   (enqueue, no sync); all beside the card's name and power limit. Then
+   blocked_cumsum beside torch.cumsum, ordered_scatter beside float
+   `index_add_` and sum_ordered beside torch.sum; the host time each
+   kernel wrapper takes per call (enqueue, no sync); all beside the
+   card's name and power limit. Then
    one line {"kernels": [...]} (launches by path), the nvidia-smi line,
    and last {"ok": true, "device": {...}}.
 
@@ -124,8 +139,9 @@ BH_OPS_HOST, BH_OPS_PAIR, BH_OPS_FIT, BH_OPS_JITTER, BH_OPS_BONUS = \
 BH_HOST_ROWS = 9
 # b mantissas at each end of [1, 2) whose divisions are checked
 DIV_B = 2048
-# blocked_cumsum's timed shape: the batched rank's (Pcap, 2)
-CUMSUM_SHAPES = ((262144, 2), (131072, 2), (8192,))
+# blocked_cumsum's main-path shapes, the first the batched rank's
+# (Pcap, 2) (the cluster route); (8192,) and (16384,) one CTA
+CUMSUM_SHAPES = ((262144, 2), (131072, 2), (8192,), (16384,))
 
 
 def fail(msg):
@@ -416,6 +432,136 @@ def scatter_cases(device):
         ("credits_2048x16384", t(lane), ti(credit), t(vals(2048, 1)))]
 
 
+def scatter_edges(device):
+    """(label, out, idx, vals) of ordered_scatter's edges: every update on
+    one target (one run of 32,768: the warp path; and of 8,192 over two
+    radix passes); every key dropped; int64 keys beyond int32 (dropped
+    like -1 and T); k = 1, 2, 4; 64 targets of ~512 updates each (many
+    runs handed to warps); one update; the credits' transposed copy; and
+    two shapes beyond the one-launch route (n = 40,000; T = 70,000),
+    which take the sorted route."""
+    import torch
+
+    rng = np.random.default_rng(11)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def vals(n, k):
+        shape = (n,) if k == 1 else (n, k)
+        return t((10.0 ** rng.uniform(-3, 3, shape)
+                  * rng.choice([-1.0, 1.0], shape)).astype(np.float32))
+
+    z = lambda T, k: torch.zeros((T,) if k == 1 else (T, k), device=device)
+    i32 = lambda a: t(np.asarray(a, np.int32))
+    H = H_MAIN
+    wide = rng.integers(0, H, 4096)
+    wide[::5] = 2 ** 40
+    wide[1::7] = -(2 ** 40)
+    wide[2::11] = H
+    wide[3::13] = -1
+    cf = vals(3 * 2048, 1).view(3, 2048)
+    out = [
+        ("one_target_32768x500", z(500, 3), i32(np.full(32768, 7)),
+         vals(32768, 3)),
+        ("one_target_8192x16384", z(H, 1), i32(np.full(8192, 9000)),
+         vals(8192, 1)),
+        ("all_dropped", z(H, 3), i32(np.where(rng.random(8192) < 0.5, -1, H)),
+         vals(8192, 3)),
+        ("int64_wide", z(H, 2), t(wide.astype(np.int64)), vals(4096, 2)),
+        ("runs_512x64_k4", z(64, 4), i32(rng.integers(0, 64, 32768)),
+         vals(32768, 4)),
+        ("n1", z(1, 1), i32([0]), vals(1, 1)),
+        ("credits_transposed", z(H, 3), i32(np.where(
+            np.arange(2048) < 1024, rng.integers(0, 800, 2048), H)),
+         cf.t().contiguous()),
+        ("sorted_n40000", z(500, 3), i32(rng.integers(-1, 501, 40000)),
+         vals(40000, 3)),
+        ("sorted_t70000", z(70000, 1), i32(rng.integers(0, 70001, 3000)),
+         vals(3000, 1))]
+    for k in (1, 2, 4):
+        out.append((f"bids_k{k}", z(H, k), i32(np.where(
+            rng.random(C_BATCHED) < 0.9, rng.integers(0, H, C_BATCHED), H)),
+            vals(C_BATCHED, k)))
+    return out
+
+
+def cumsum_edges(device):
+    """(label, x) of blocked_cumsum's edges, by route: one CTA (n = 1
+    with -0.0, 15, 16, 17, 4,097, 16,384), the cluster (16,385: 5 CTAs
+    of 4,096; 32,767 and 32,769 around 8 full chunks of 4,096; 131,073;
+    262,143 and 262,145 around 8 chunks of 32,768; 327,680, the route's
+    largest), device memory (327,681), 2-D k = 2 and 3, and strided
+    views (columns 1:3 of 4, every other row)."""
+    import torch
+
+    rng = np.random.default_rng(13)
+
+    def mixed(shape):
+        return torch.from_numpy((10.0 ** rng.uniform(-3, 3, shape)
+                                 * rng.choice([-1.0, 1.0], shape))
+                                .astype(np.float32)).to(device)
+
+    out = [("n1_neg_zero", torch.full((1,), -0.0, device=device))]
+    for n in (15, 16, 17, 4097, 16384, 16385, 32767, 32769, 131073, 262143,
+              262145, 327680, 327681):
+        out.append((f"n{n}", mixed((n,))))
+    for n, k in ((17, 2), (16384, 3), (16385, 3), (262144, 3), (327681, 2)):
+        out.append((f"n{n}_k{k}", mixed((n, k))))
+    for n in (8192, 100000):
+        out.append((f"n{n}_cols_1_3_of_4", mixed((n, 4))[:, 1:3]))
+        out.append((f"n{n}_every_other_row", mixed((2 * n,))[::2]))
+    return out
+
+
+def sum_cases(device):
+    """(label, x) of sum_ordered: the dense round's D = 1,024 and H =
+    16,384 (the main path's calls), one element (-0.0 stays), sizes
+    around one window and a level, and the kernel's largest n."""
+    import torch
+
+    rng = np.random.default_rng(17)
+    out = [("n1_neg_zero", torch.full((1,), -0.0, device=device))]
+    for n in (2, 31, 32, 33, 1000, D_MAIN, 1025, H_MAIN, 16385, 100000,
+              262144):
+        x = (10.0 ** rng.uniform(-3, 3, n)
+             * rng.choice([-1.0, 1.0], n)).astype(np.float32)
+        x[::97] = 0.0
+        out.append((f"n{n}", torch.from_numpy(x).to(device)))
+    return out
+
+
+def check_sum(x, label):
+    """sum_ordered vs its plain version, bit for bit, and run to run."""
+    import torch
+    from cook_tpu_torch.ops import segments as seg
+
+    a, b = seg.sum_ordered(x), seg.sum_ordered(x)
+    p = seg.sum_ordered_plain(x)
+    torch.cuda.synchronize()
+    bits = lambda t: t.view(torch.int32)
+    if not torch.equal(bits(a), bits(p)):
+        fail(f"sum_ordered {label}: not bit-equal to plain ({float(a)} vs "
+             f"{float(p)})")
+    if not torch.equal(bits(a), bits(b)):
+        fail(f"sum_ordered {label}: two runs differ")
+    return abs(float(a) - float(p))
+
+
+def off_route(launches):
+    """Launches of the routes for shapes beyond the on-chip designs (the
+    main path's calls all fit them)."""
+    return launches["ordered_scatter/sorted"] + \
+        launches["blocked_cumsum/global"]
+
+
+def routes_ran(before, names, label):
+    """Fail unless each launch counter in `names` moved since `before`."""
+    from cook_tpu_torch.ops import fused_match as fm
+
+    for k in names:
+        if fm.LAUNCHES[k] == before[k]:
+            fail(f"{label}: the {k} route never ran")
+
+
 def check_scatter(out, idx, vals, label):
     """ordered_scatter vs its plain version, bit for bit, and run to run;
     returns (max |diff|, the longest run: updates of one target)."""
@@ -433,8 +579,8 @@ def check_scatter(out, idx, vals, label):
     if not torch.equal(bits(a), bits(b)):
         fail(f"ordered_scatter {label}: two runs differ")
     i = idx.cpu().numpy()
-    return float((a - p).abs().max()), \
-        int(np.bincount(i[(i >= 0) & (i < out.shape[0])]).max())
+    return float((a - p).abs().max()), int(np.bincount(
+        i[(i >= 0) & (i < out.shape[0])], minlength=1).max())
 
 
 def check_cumsum(x, label):
@@ -469,15 +615,16 @@ def plain_kernels():
     from cook_tpu_torch.ops import segments as seg
 
     saved = (fm.exact_scan, fm.best_host, seg.blocked_cumsum,
-             seg.scatter_add_ordered_)
+             seg.scatter_add_ordered_, seg.sum_ordered)
     fm.exact_scan, fm.best_host = fm.exact_scan_plain, fm.best_host_plain
     seg.blocked_cumsum = seg.blocked_cumsum_plain
     seg.scatter_add_ordered_ = seg.scatter_add_ordered_plain_
+    seg.sum_ordered = seg.sum_ordered_plain
     try:
         yield
     finally:
         (fm.exact_scan, fm.best_host, seg.blocked_cumsum,
-         seg.scatter_add_ordered_) = saved
+         seg.scatter_add_ordered_, seg.sum_ordered) = saved
 
 
 def head_window_inversions(w, out, now_s):
@@ -614,24 +761,51 @@ def main():
     from cook_tpu_torch.ops import segments as seg
     cs_err = 0.0
     xs = {}
+    before = dict(fm.LAUNCHES)
     for shape in CUMSUM_SHAPES:
         x = torch.from_numpy((10.0 ** rng.uniform(-3, 3, shape)
                               * rng.choice([-1.0, 1.0], shape))
                              .astype(np.float32)).to(dev)
         cs_err = max(cs_err, check_cumsum(x, str(shape)))
         xs[shape] = x
+    cs_routes = {}
+    for label, x in cumsum_edges(dev):
+        cs_err = max(cs_err, check_cumsum(x, label))
+        cs_routes[label] = seg.blocked_cumsum_plan(x.shape[0])[:2]
+    routes_ran(before, ("blocked_cumsum", "blocked_cumsum/global"),
+               "blocked_cumsum edges")
     print(json.dumps({"blocked_cumsum_vs_plain": "bit-equal, run to run",
-                      "shapes": [list(k) for k in CUMSUM_SHAPES]}),
-          flush=True)
+                      "shapes": [list(k) for k in CUMSUM_SHAPES],
+                      "edges_route_ctas": cs_routes}), flush=True)
+    cs_ms, cs_bound = {}, {}
+    for shape, x in xs.items():
+        cs_ms[str(shape)] = cuda_ms(lambda: seg.blocked_cumsum(x), 50)
+        # each input float read once, each output float written once;
+        # one addition per element (plus n/15 for the levels above)
+        cs_bound[str(shape)] = bound(2 * x.numel() * 4,
+                                     x.numel() * 16 // 15)
     x = xs[CUMSUM_SHAPES[0]]
-    cs_ms = cuda_ms(lambda: seg.blocked_cumsum(x), 50)
     cs_plain_ms = cuda_ms(lambda: seg.blocked_cumsum_plain(x), 5)
     cs_lib_ms = cuda_ms(lambda: torch.cumsum(x, dim=0), 50)
     cs_lib_inner_ms = cuda_ms(
         lambda: torch.cumsum(x.t().contiguous(), dim=1), 50)
-    # each input float read once, each output float written once; one
-    # addition per element (plus n/15 for the levels above)
-    cs_bound_ms, cs_bound_by = bound(2 * x.numel() * 4, x.numel() * 16 // 15)
+    CS_MAIN = str(CUMSUM_SHAPES[0])
+    cs_bound_ms, cs_bound_by = cs_bound[CS_MAIN]
+
+    # ---- 2c. sum_ordered vs plain on the card ------------------------------
+    sum_err = 0.0
+    sxs = {}
+    for label, x in sum_cases(dev):
+        sum_err = max(sum_err, check_sum(x, label))
+        sxs[x.shape[0]] = x
+    print(json.dumps({"sum_ordered_vs_plain": "bit-equal, run to run",
+                      "sizes": sorted(sxs)}), flush=True)
+    sum_ms = {n: cuda_ms(lambda: seg.sum_ordered(sxs[n]), 50)
+              for n in (D_MAIN, H_MAIN)}
+    sum_plain_ms = cuda_ms(lambda: seg.sum_ordered_plain(sxs[H_MAIN]), 5)
+    sum_lib_ms = cuda_ms(lambda: torch.sum(sxs[H_MAIN]), 50)
+    # the floats read once, one written; one addition per element
+    sum_bound_ms, sum_bound_by = bound(4 * H_MAIN + 4, H_MAIN)
 
     # ---- 3. best_host vs plain on the card ---------------------------------
     D = D_MAIN
@@ -706,8 +880,16 @@ def main():
         sc_bound[label] = bound(
             i.element_size() * n + 4 * v.numel() + 8 * k * touched,
             v.numel())
+    before = dict(fm.LAUNCHES)
+    sc_edge_runs = {}
+    for label, o, i, v in scatter_edges(dev):
+        err, sc_edge_runs[label] = check_scatter(o, i, v, label)
+        sc_err = max(sc_err, err)
+    routes_ran(before, ("ordered_scatter", "ordered_scatter/sorted"),
+               "ordered_scatter edges")
     print(json.dumps({"ordered_scatter_vs_plain": "bit-equal, run to run",
-                      "longest_run": sc_runs}), flush=True)
+                      "longest_run": sc_runs,
+                      "edges_longest_run": sc_edge_runs}), flush=True)
     SC_MAIN = "bids_8192x16384"
 
     # ---- 3c. host time of each wrapper per call (enqueue only) -------------
@@ -720,6 +902,7 @@ def main():
             CUMSUM_SHAPES[0]])),
         "ordered_scatter": host_us(
             lambda: seg.scatter_add_ordered_(o, i, v)),
+        "sum_ordered": host_us(lambda: seg.sum_ordered(sxs[H_MAIN])),
         "torch_add_reference": host_us(lambda: torch.add(o, 1.0)),
     }
     print(json.dumps({"wrapper_host_us_per_call": wrapper_host_us}),
@@ -759,7 +942,8 @@ def main():
     seq_launches = dict(fm.LAUNCHES)
     if seq_launches["exact_scan"] != CYCLES or seq_launches["best_host"] \
             or seq_launches["blocked_cumsum"] < CYCLES \
-            or seq_launches["ordered_scatter"] < CYCLES:
+            or seq_launches["ordered_scatter"] < CYCLES \
+            or seq_launches["sum_ordered"] or off_route(seq_launches):
         fail(f"sequential path launches {seq_launches} in {CYCLES} cycles")
     if sum(matched) == 0:
         fail("the sequential cycles matched nothing")
@@ -786,7 +970,7 @@ def main():
             sequential_for(wb.C):
         fail(f"unexpected batched sizing {(rs.Pcap, rs.Rcap, rs.Hcap)}")
     b_recorded, b_host_ms, b_matched, b_phase = [], [], [], {}
-    bh_per_cycle, cs_per_cycle, os_per_cycle = [], [], []
+    bh_per_cycle, cs_per_cycle, os_per_cycle, so_per_cycle = [], [], [], []
     inversions, why_counts = [], []
     fm.reset_launches()
     for c in range(BATCHED):
@@ -803,10 +987,12 @@ def main():
         bh_per_cycle.append(d["best_host"])
         cs_per_cycle.append(d["blocked_cumsum"])
         os_per_cycle.append(d["ordered_scatter"])
+        so_per_cycle.append(d["sum_ordered"])
         if d["exact_scan"] != 1:
             fail(f"batched cycle {c}: exact_scan launched "
                  f"{d['exact_scan']} times")
-        for k in ("best_host", "blocked_cumsum", "ordered_scatter"):
+        for k in ("best_host", "blocked_cumsum", "ordered_scatter",
+                  "sum_ordered"):
             if d[k] < 1:
                 fail(f"batched cycle {c}: {k} never launched")
         check_cycle_state(wb, mat_idx, c, "batched")
@@ -820,6 +1006,9 @@ def main():
         if c < BATCHED_REPLAY:
             b_recorded.append((mat_idx, mat_host, out[8].cpu().numpy()))
     b_launches = dict(fm.LAUNCHES)
+    if off_route(b_launches):
+        fail(f"batched path launches {b_launches}: a call beyond the "
+             f"on-chip routes")
     if sum(b_matched) == 0:
         fail("the batched cycles matched nothing")
     print(json.dumps({"batched_best_host_launches_per_cycle": bh_per_cycle,
@@ -827,6 +1016,8 @@ def main():
                           cs_per_cycle,
                       "batched_ordered_scatter_launches_per_cycle":
                           os_per_cycle,
+                      "batched_sum_ordered_launches_per_cycle":
+                          so_per_cycle,
                       "batched_head_window_inversions": inversions,
                       "batched_why_code_counts": why_counts,
                       "audit_window": AUDIT_WINDOW}), flush=True)
@@ -867,6 +1058,7 @@ def main():
                     "best_host_launches_per_cycle": bh_per_cycle,
                     "blocked_cumsum_launches_per_cycle": cs_per_cycle,
                     "ordered_scatter_launches_per_cycle": os_per_cycle,
+                    "sum_ordered_launches_per_cycle": so_per_cycle,
                     **cycle_stats(b_phase, b_host_ms, b_matched)},
         "exact_scan_cluster_ctas": cluster,
         "exact_scan_ms": kernel_ms,
@@ -881,10 +1073,9 @@ def main():
         "best_host_plain_ms": bh_plain_ms,
         "best_host_bound_ms": bh_bound_ms,
         "best_host_feasible_pairs": feas,
-        "blocked_cumsum_shape": list(CUMSUM_SHAPES[0]),
         "blocked_cumsum_ms": cs_ms,
         "blocked_cumsum_plain_ms": cs_plain_ms,
-        "blocked_cumsum_bound_ms": cs_bound_ms,
+        "blocked_cumsum_bound_ms": {k: v[0] for k, v in cs_bound.items()},
         "torch_cumsum_dim0_ms": cs_lib_ms,
         "torch_cumsum_transposed_ms": cs_lib_inner_ms,
         "ordered_scatter_ms": sc_ms,
@@ -892,55 +1083,62 @@ def main():
         "ordered_scatter_bound_ms": {k: v[0] for k, v in sc_bound.items()},
         "index_add_ms": sc_lib_ms,
         "ordered_scatter_longest_run": sc_runs,
+        "sum_ordered_ms": sum_ms,
+        "sum_ordered_plain_ms": sum_plain_ms,
+        "sum_ordered_bound_ms": sum_bound_ms,
+        "torch_sum_ms": sum_lib_ms,
         "wrapper_host_us_per_call": wrapper_host_us,
         "library_note": "no single PyTorch call computes the sequential "
                         "scan or the masked fitness argmax; "
                         "torch.cumsum(x, 0) computes blocked_cumsum's "
                         "function in another association, float "
-                        "index_add_ ordered_scatter's in no fixed order",
+                        "index_add_ ordered_scatter's in no fixed order, "
+                        "torch.sum sum_ordered's in another association",
     }
     print(json.dumps(timings), flush=True)
     by_path = {k: {"sequential": seq_launches[k], "batched": b_launches[k]}
                for k in seq_launches}
+
+    def entry(name, route, source, replaces, err, ms, plain, bnd, lib,
+              **extra):
+        return {"name": name, "route": route, "source": source,
+                "replaces": replaces,
+                "launches": sum(by_path[name].values()),
+                "launches_by_path": by_path[name], "max_abs_err": err,
+                "ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": lib, **extra}
+
     print(json.dumps({"kernels": [
-        {"name": "exact_scan", "route": "cuda",
-         "source": "cook_tpu_torch/csrc/exact_scan.cu",
-         "replaces": "cook_tpu/ops/pallas_match.py:166",
-         "launches": sum(by_path["exact_scan"].values()),
-         "launches_by_path": by_path["exact_scan"], "max_abs_err": max_err,
-         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": scan_bound_ms,
-         "bound_by": scan_bound_by, "library_ms": None,
-         "chain_floor_ms": floor_ms, "cluster_ctas": cluster},
-        {"name": "best_host", "route": "cuda",
-         "source": "cook_tpu_torch/csrc/best_host.cu",
-         "replaces": "cook_tpu/ops/pallas_match.py:285",
-         "launches": sum(by_path["best_host"].values()),
-         "launches_by_path": by_path["best_host"], "max_abs_err": bh_err,
-         "ms": bh_ms, "plain_ms": bh_plain_ms, "bound_ms": bh_bound_ms,
-         "bound_by": bh_bound_by, "library_ms": None},
-        {"name": "blocked_cumsum", "route": "cuda",
-         "source": "cook_tpu_torch/csrc/blocked_cumsum.cu",
-         "replaces": "none: jnp.cumsum (cook_tpu/ops/segments.py:39, "
-                     "dru.py:136, match.py:530-563), no pl.pallas_call",
-         "launches": sum(by_path["blocked_cumsum"].values()),
-         "launches_by_path": by_path["blocked_cumsum"],
-         "max_abs_err": cs_err, "ms": cs_ms, "plain_ms": cs_plain_ms,
-         "bound_ms": cs_bound_ms, "bound_by": cs_bound_by,
-         "library_ms": cs_lib_ms,
-         "shape": list(CUMSUM_SHAPES[0])},
-        {"name": "ordered_scatter", "route": "cuda",
-         "source": "cook_tpu_torch/csrc/ordered_scatter.cu",
-         "replaces": "none: jax.ops.segment_sum / .at[].add "
-                     "(cook_tpu/ops/match.py:490-497, ops/cycle.py:173-179, "
-                     "scheduler/resident.py:157-159)",
-         "launches": sum(by_path["ordered_scatter"].values()),
-         "launches_by_path": by_path["ordered_scatter"],
-         "max_abs_err": sc_err, "ms": sc_ms[SC_MAIN],
-         "plain_ms": sc_plain_ms[SC_MAIN],
-         "bound_ms": sc_bound[SC_MAIN][0],
-         "bound_by": sc_bound[SC_MAIN][1],
-         "library_ms": sc_lib_ms[SC_MAIN], "case": SC_MAIN,
-         "longest_run": sc_runs[SC_MAIN]}]}), flush=True)
+        entry("exact_scan", "cuda", "cook_tpu_torch/csrc/exact_scan.cu",
+              "cook_tpu/ops/pallas_match.py:166", max_err, kernel_ms,
+              plain_ms, (scan_bound_ms, scan_bound_by), None,
+              chain_floor_ms=floor_ms, cluster_ctas=cluster),
+        entry("best_host", "cuda", "cook_tpu_torch/csrc/best_host.cu",
+              "cook_tpu/ops/pallas_match.py:285", bh_err, bh_ms,
+              bh_plain_ms, (bh_bound_ms, bh_bound_by), None),
+        entry("blocked_cumsum", "cuda",
+              "cook_tpu_torch/csrc/blocked_cumsum.cu",
+              "none: jnp.cumsum (cook_tpu/ops/segments.py:39, dru.py:136, "
+              "match.py:530-563), no pl.pallas_call", cs_err,
+              cs_ms[CS_MAIN], cs_plain_ms, cs_bound[CS_MAIN], cs_lib_ms,
+              shape=list(CUMSUM_SHAPES[0]), ms_by_shape=cs_ms,
+              edge_launches_global_route=by_path[
+                  "blocked_cumsum/global"]),
+        entry("ordered_scatter", "cuda",
+              "cook_tpu_torch/csrc/ordered_scatter.cu",
+              "none: jax.ops.segment_sum / .at[].add "
+              "(cook_tpu/ops/match.py:490-497, ops/cycle.py:173-179, "
+              "scheduler/resident.py:157-159)", sc_err, sc_ms[SC_MAIN],
+              sc_plain_ms[SC_MAIN], sc_bound[SC_MAIN], sc_lib_ms[SC_MAIN],
+              case=SC_MAIN, ms_by_case=sc_ms,
+              longest_run=sc_runs[SC_MAIN],
+              sorted_route_launches_by_path=by_path[
+                  "ordered_scatter/sorted"]),
+        entry("sum_ordered", "cuda", "cook_tpu_torch/csrc/sum_ordered.cu",
+              "none: jnp.sum (cook_tpu/ops/match.py:636-649), no "
+              "pl.pallas_call", sum_err, sum_ms[H_MAIN], sum_plain_ms,
+              (sum_bound_ms, sum_bound_by), sum_lib_ms, n=H_MAIN,
+              ms_by_n=sum_ms)]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -26,27 +26,28 @@ BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-KERNELS = ("exact_scan", "best_host", "blocked_cumsum", "ordered_scatter")
+KERNELS = ("exact_scan", "best_host", "blocked_cumsum", "ordered_scatter",
+           "sum_ordered")
 
 # argtypes of the C functions each kernel's library exports (all return
 # int)
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "exact_scan": {
-        "exact_scan_launch": [ctypes.c_void_p] * 8 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        "exact_scan_launch": [_P] * 8 + [_I, _I, _P],
         "exact_scan_cluster": []},
     "best_host": {
-        "best_host_launch": [ctypes.c_void_p] * 7 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
-        "best_host_div_check": [ctypes.c_uint, ctypes.c_uint,
-                                ctypes.c_void_p, ctypes.c_void_p]},
+        "best_host_launch": [_P] * 7 + [_I, _I, ctypes.c_float, _P],
+        "best_host_div_check": [ctypes.c_uint, ctypes.c_uint, _P, _P]},
     "blocked_cumsum": {
-        "blocked_cumsum_launch": [ctypes.c_void_p] * 3 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]},
+        "blocked_cumsum_launch": [_P] * 2 + [_I, _I, _LL, _LL, _I, _I, _P],
+        "blocked_cumsum_global_launch": [_P] * 2 + [
+            _I, _I, _LL, _LL, _P, _LL, _P]},
     "ordered_scatter": {
-        "ordered_scatter_launch": [ctypes.c_void_p] * 4 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]},
+        "ordered_scatter_launch": [_P] * 4 + [_I] * 7 + [_P],
+        "ordered_scatter_sorted_launch": [_P] * 4 + [_I] * 3 + [_P]},
+    "sum_ordered": {
+        "sum_ordered_launch": [_P] * 2 + [_I, _P]},
 }
 
 _lock = threading.Lock()

@@ -199,6 +199,27 @@ def _host_sums(acc_host, vals, H):
         vals.new_zeros((H, vals.shape[1])), acc_host, vals)
 
 
+def window_size(in_use, c_mem, c_cpus, dense_usable, mem_left, cpus_left,
+                N):
+    """(mean_mem, mean_cpus, absorb, W) of a dense round's fairness window
+    (match.py:636-649): the remaining capacity over the mean candidate
+    demand plus one slot per usable host, absorb clamped to N before the
+    int cast. The f32 sums take XLA-CPU's association
+    (`segments.sum_ordered`): in another order absorb can land on the
+    other side of an integer, and W with it."""
+    K = dense_usable.sum(dtype=torch.int32)
+    n_cand = torch.clamp(in_use.sum(dtype=torch.int32), min=1)
+    mean_mem = torch.clamp(segments.sum_ordered(
+        torch.where(in_use, c_mem, 0.0)) / n_cand, min=1e-6)
+    mean_cpus = torch.clamp(segments.sum_ordered(
+        torch.where(in_use, c_cpus, 0.0)) / n_cand, min=1e-6)
+    absorb = segments.sum_ordered(torch.where(
+        dense_usable, torch.minimum(mem_left / mean_mem,
+                                    cpus_left / mean_cpus), 0.0))
+    W = K + torch.clamp(absorb, max=float(N)).to(torch.int32)
+    return mean_mem, mean_cpus, absorb, W
+
+
 def compute_accept(state, choice, bids, jmem, jcpus, jgpus, jgroup,
                    junique, num_groups):
     """Which bids hosts accept (match.py:431-476): claimants in queue
@@ -406,17 +427,8 @@ def match_rounds(jobs: Jobs, hosts: Hosts, forbidden: torch.Tensor,
         dense_usable = (hosts.valid & (slots_left > 0)
                         & ((mem_left > 1e-6) | (cpus_left > 1e-6)
                            | (gpus_left > 1e-6)))
-        K = dense_usable.sum(dtype=torch.int32)
-        n_cand = torch.clamp(in_use.sum(dtype=torch.int32), min=1)
-        mean_mem = torch.clamp(torch.where(in_use, c_mem, 0.0).sum()
-                               / n_cand, min=1e-6)
-        mean_cpus = torch.clamp(torch.where(in_use, c_cpus, 0.0).sum()
-                                / n_cand, min=1e-6)
-        absorb = torch.where(dense_usable,
-                             torch.minimum(mem_left / mean_mem,
-                                           cpus_left / mean_cpus),
-                             0.0).sum()
-        W = K + torch.clamp(absorb, max=float(N)).to(torch.int32)
+        W = window_size(in_use, c_mem, c_cpus, dense_usable, mem_left,
+                        cpus_left, N)[3]
         window = in_use & (arD < W)
 
         c_forb = forbidden[srcc] | ~in_use[:, None]

@@ -53,6 +53,11 @@ def cumsum0(values: torch.Tensor) -> torch.Tensor:
 
 
 BLOCK = 16     # XLA-CPU's cumsum block
+# blocked_cumsum's routes (see blocked_cumsum_plan)
+CUMSUM_ONE_CTA_MAX = 16384      # rows one CTA scans on chip
+CUMSUM_CLUSTER = 8              # CTAs a column at most (a portable cluster)
+CUMSUM_CHUNK_ALIGN = BLOCK ** 3  # a CTA's chunk: whole level-3 blocks
+CUMSUM_CHUNK_MAX = 40960        # rows a CTA holds on chip (~180 KB)
 
 
 def blocked_cumsum(values: torch.Tensor) -> torch.Tensor:
@@ -105,13 +110,32 @@ def _blocked_scan(x: torch.Tensor) -> torch.Tensor:
 
 
 def blocked_cumsum_scratch(n: int) -> int:
-    """Floats of level totals the kernel keeps per column: n/16 +
-    n/256 + ... down to the first level of <= 16 values."""
+    """Floats of level totals the "global" route keeps per column in
+    device memory: n/16 + n/256 + ... down to the first level of <= 16
+    values."""
     total = 0
     while n > BLOCK:
         n = -(-n // BLOCK)
         total += n
     return total
+
+
+def blocked_cumsum_plan(n: int) -> tuple[str, int, int]:
+    """(route, CTAs a column, rows a CTA) of blocked_cumsum's kernel:
+    - "one_cta": n <= CUMSUM_ONE_CTA_MAX; one CTA a column scans every
+      level in shared memory;
+    - "cluster": up to CUMSUM_CLUSTER * CUMSUM_CHUNK_MAX rows; a cluster
+      of CTAs a column, each holding a chunk of whole level-3 blocks
+      (4,096 rows), so only the levels from 3 up cross CTAs;
+    - "global": beyond; one CTA a column walks the levels through a
+      scratch in device memory (blocked_cumsum_scratch)."""
+    if n <= CUMSUM_ONE_CTA_MAX:
+        return "one_cta", 1, n
+    per = -(-n // CUMSUM_CLUSTER)
+    chunk = -(-per // CUMSUM_CHUNK_ALIGN) * CUMSUM_CHUNK_ALIGN
+    if chunk > CUMSUM_CHUNK_MAX:
+        return "global", 1, n
+    return "cluster", -(-n // chunk), chunk
 
 
 def _blocked_cumsum_cuda(values: torch.Tensor) -> torch.Tensor:
@@ -126,24 +150,118 @@ def _blocked_cumsum_cuda(values: torch.Tensor) -> torch.Tensor:
                            device=values.device)
     if n >= 2 ** 31:
         raise ValueError(f"blocked_cumsum: {n} rows out of range")
-    # one allocation: the output, then the level totals (host time
-    # matters: a batched cycle makes ~33 of these calls)
-    per_col = blocked_cumsum_scratch(n)
+    route, ctas, chunk = blocked_cumsum_plan(n)
+    # the global route's level totals follow the output in one
+    # allocation (host time matters: a batched cycle makes ~33 calls)
+    per_col = blocked_cumsum_scratch(n) if route == "global" else 0
     buf = torch.empty(n * k + per_col * k, dtype=torch.float32,
                       device=values.device)
     lib = build.load("blocked_cumsum")
     dev = values.device
+    args = (values.data_ptr(), buf.data_ptr(), n, k, values.stride(0),
+            0 if values.dim() == 1 else values.stride(1))
     with torch.cuda.device(dev):
-        rc = lib.blocked_cumsum_launch(
-            values.data_ptr(), buf.data_ptr(),
-            buf.data_ptr() + 4 * n * k, n, k, values.stride(0),
-            0 if values.dim() == 1 else values.stride(1), per_col,
-            torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if route == "global":
+            rc = lib.blocked_cumsum_global_launch(
+                *args, buf.data_ptr() + 4 * n * k, per_col, stream)
+        else:
+            rc = lib.blocked_cumsum_launch(*args, ctas, chunk, stream)
     if rc != 0:
         raise RuntimeError(f"blocked_cumsum kernel launch failed: CUDA "
                            f"error {rc}")
-    LAUNCHES["blocked_cumsum"] += 1
+    LAUNCHES["blocked_cumsum" if route != "global"
+             else "blocked_cumsum/global"] += 1
     return buf[:n * k].view(values.shape)
+
+
+SUM_WINDOW = 32           # XLA-CPU's tree reduction window
+SUM_MAX = SUM_WINDOW * 8192   # the kernel keeps the first level on chip
+
+
+def sum_ordered(x: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of a 1-D tensor (a 0-d tensor on x's device) in the
+    association of jax 0.9.0's XLA-CPU `jnp.sum`, which
+    tests/test_torch_sum.py pins bit for bit: XLA's tree-reduction
+    rewrite cuts a reduction of more than 32 elements into windows of 32
+    (the padding split evenly, one more at the end), each summed left to
+    right from 0, and reduces the window sums the same way until at most
+    32 remain, which are summed left to right from 0; one element is
+    returned as it is (-0.0 stays). CUDA tensors launch
+    csrc/sum_ordered.cu (n <= SUM_MAX); CPU tensors run the plain
+    version; anything else raises."""
+    dev = x.device
+    if dev.type == "cpu":
+        return sum_ordered_plain(x)
+    if dev.type != "cuda":
+        raise ValueError(f"sum_ordered: unsupported device {dev}")
+    return _sum_ordered_cuda(x)
+
+
+def _check_sum(x):
+    if x.dtype != torch.float32 or x.dim() != 1:
+        raise TypeError(f"sum_ordered: 1-D float32, got {x.dtype} "
+                        f"{tuple(x.shape)}")
+
+
+def sum_windows(n: int) -> list[tuple[int, int]]:
+    """(windows, padding in front) of each tree level of a sum of n
+    elements, bottom up; the last level of <= 32 values is not listed."""
+    out = []
+    while n > SUM_WINDOW:
+        nb = -(-n // SUM_WINDOW)
+        out.append((nb, (nb * SUM_WINDOW - n) // 2))
+        n = nb
+    return out
+
+
+def sum_ordered_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, on any device: the same f32
+    additions in the same order (a padding zero added to a running sum
+    that started at +0.0 changes nothing)."""
+    _check_sum(x)
+    n = x.shape[0]
+    if n == 0:
+        return x.new_zeros(())
+    if n == 1:
+        return x[0].clone()
+    for nb, lo in sum_windows(n):
+        xp = torch.nn.functional.pad(x, (lo, nb * SUM_WINDOW - x.shape[0]
+                                         - lo)).view(nb, SUM_WINDOW)
+        acc = xp[:, 0] + 0.0
+        for j in range(1, SUM_WINDOW):
+            acc = acc + xp[:, j]
+        x = acc
+    acc = x[0] + 0.0
+    for j in range(1, x.shape[0]):
+        acc = acc + x[j]
+    return acc
+
+
+def _sum_ordered_cuda(x: torch.Tensor) -> torch.Tensor:
+    from cook_tpu_torch.kernels import build
+    from cook_tpu_torch.ops.fused_match import LAUNCHES
+
+    _check_sum(x)
+    n = x.shape[0]
+    if n == 0:
+        return x.new_zeros(())
+    if n > SUM_MAX:
+        raise ValueError(f"sum_ordered: {n} elements, the kernel takes "
+                         f"at most {SUM_MAX}")
+    x = x.contiguous()
+    out = torch.empty((), dtype=torch.float32, device=x.device)
+    lib = build.load("sum_ordered")
+    dev = x.device
+    with torch.cuda.device(dev):
+        rc = lib.sum_ordered_launch(
+            x.data_ptr(), out.data_ptr(), n,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sum_ordered kernel launch failed: CUDA error "
+                           f"{rc}")
+    LAUNCHES["sum_ordered"] += 1
+    return out
 
 
 def segment_cumsum(values: torch.Tensor, seg_ids: torch.Tensor) -> torch.Tensor:
@@ -172,6 +290,31 @@ def _check_scatter(out, idx, vals):
                         f"{idx.dtype}")
 
 
+SCATTER_ONE_MAX_N = 32768   # updates one CTA sorts in shared memory
+SCATTER_ONE_MAX_T = 65535   # targets: a key and the drop bucket in 16 bits
+SCATTER_DIGIT_MAX = 9       # radix digit bits (512 bins x 32 warps)
+
+
+def scatter_plan(n: int, T: int) -> tuple[str, int, tuple[int, ...]]:
+    """(route, update-index bits, radix digit bits by pass) of
+    scatter_add_ordered_'s kernel for n updates onto T targets:
+    - "ordered_scatter": n <= SCATTER_ONE_MAX_N and T <=
+      SCATTER_ONE_MAX_T; one launch of one CTA sorts (key << jbits | j)
+      words by key with a stable LSD radix sort over the bits of 0..T
+      (T is the drop bucket), one or two passes of at most
+      SCATTER_DIGIT_MAX bits, then walks each target's run in order;
+    - "ordered_scatter/sorted": beyond; a stable torch.sort of the int32
+      keys, then a kernel that walks each run."""
+    if n > SCATTER_ONE_MAX_N or T > SCATTER_ONE_MAX_T:
+        return "ordered_scatter/sorted", 0, ()
+    jbits = max(1, (n - 1).bit_length())
+    kbits = T.bit_length()
+    passes = -(-kbits // SCATTER_DIGIT_MAX)
+    d0 = -(-kbits // passes)
+    return "ordered_scatter", jbits, (d0,) if passes == 1 \
+        else (d0, kbits - d0)
+
+
 def scatter_add_ordered_(out: torch.Tensor, idx: torch.Tensor,
                          vals: torch.Tensor) -> torch.Tensor:
     """In place: out[t] += vals[j] for every j with idx[j] == t, one
@@ -183,8 +326,9 @@ def scatter_add_ordered_(out: torch.Tensor, idx: torch.Tensor,
     index dropped too), onto a lane `lane.at[idx].add(vals, mode="drop")`
     for indices >= 0. out (T,) or (T, k), vals (n,) or (n, k), idx (n,)
     integer. CUDA tensors launch csrc/ordered_scatter.cu (float
-    `index_add_` on CUDA adds in whatever order its atomics land); CPU
-    tensors run the plain version; anything else raises. Returns out."""
+    `index_add_` on CUDA adds in whatever order its atomics land) by the
+    route scatter_plan names; CPU tensors run the plain version;
+    anything else raises. Returns out."""
     dev = out.device
     if dev.type == "cpu":
         return scatter_add_ordered_plain_(out, idx, vals)
@@ -238,21 +382,37 @@ def _scatter_add_ordered_cuda(out, idx, vals):
     if not (n < 2 ** 31 and T < 2 ** 31 and k <= 4):
         raise ValueError(f"scatter_add_ordered: n={n}, T={T}, k={k} out of "
                          f"range")
-    # int32 keys (half the radix passes of int64); wider indices are
-    # clamped into [-1, T] first, which drops the same updates
-    key = torch.clamp(idx, -1, T) if idx.dtype == torch.int64 else idx
-    skey, perm = torch.sort(key.to(torch.int32), stable=True)
+    route, jbits, digits = scatter_plan(n, T)
     lib = build.load("ordered_scatter")
     dev = out.device
     with torch.cuda.device(dev):
-        rc = lib.ordered_scatter_launch(
-            skey.data_ptr(), perm.data_ptr(), vals.data_ptr(),
-            out.data_ptr(), n, T, k,
-            torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if route == "ordered_scatter":
+            if idx.dtype not in (torch.int32, torch.int64):
+                idx = idx.to(torch.int32)
+            idx = idx.contiguous()
+            # the first of two radix passes writes its words here where
+            # the kernel cannot keep them on chip (n above ~16,000)
+            ping = torch.empty(n if len(digits) == 2 else 0,
+                               dtype=torch.int32, device=dev)
+            rc = lib.ordered_scatter_launch(
+                idx.data_ptr(), vals.data_ptr(), out.data_ptr(),
+                ping.data_ptr(), n, T, k, int(idx.dtype == torch.int64),
+                jbits, digits[0], digits[1] if len(digits) == 2 else 0,
+                stream)
+        else:
+            # int32 keys (half the radix passes of int64); wider indices
+            # are clamped into [-1, T] first, which drops the same updates
+            key = torch.clamp(idx, -1, T) if idx.dtype == torch.int64 \
+                else idx
+            skey, perm = torch.sort(key.to(torch.int32), stable=True)
+            rc = lib.ordered_scatter_sorted_launch(
+                skey.data_ptr(), perm.data_ptr(), vals.data_ptr(),
+                out.data_ptr(), n, T, k, stream)
     if rc != 0:
-        raise RuntimeError(f"ordered_scatter kernel launch failed: CUDA "
-                           f"error {rc}")
-    LAUNCHES["ordered_scatter"] += 1
+        raise RuntimeError(f"{route} kernel launch failed: CUDA error "
+                           f"{rc}")
+    LAUNCHES[route] += 1
     return out
 
 

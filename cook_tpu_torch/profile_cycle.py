@@ -15,13 +15,17 @@ head and dense rounds), runs 3 warm-up cycles, then:
 2. 4 cycles under torch.profiler: device time per cycle summed over
    kernels, the device's idle share of the profiled wall time, the
    kernels ranked by device time (exact_scan's, best_host's,
-   blocked_cumsum's and ordered_scatter's named),
+   blocked_cumsum's, ordered_scatter's and sum_ordered's named),
    and the host syncs per cycle (CUDA stream/device synchronisations;
    `.item()`-style reads, `nonzero` and the prefix readback each make
    one);
 3. 1 more cycle under `torch.cuda.set_sync_debug_mode("warn")`: the
    source line of each synchronising call (PyTorch's sync debug mode is
-   a prototype and may miss some).
+   a prototype and may miss some);
+4. 1 more cycle with the three segment kernels' wrappers counted by
+   call shape (`call_shapes`: blocked_cumsum by rows x columns and
+   route, ordered_scatter by updates x targets x columns and route,
+   sum_ordered by length).
 
 Prints one JSON object with the card's name and power limit. Needs a
 CUDA device; `--trace DIR` also writes a Chrome trace there.
@@ -73,6 +77,42 @@ def _sync_sources(w) -> dict:
                 else "/".join(path.split(os.sep)[-2:]))
         where[f"{path}:{r.lineno}"] += 1
     return dict(where.most_common())
+
+
+def _call_shapes(w, **cycle_kw) -> dict:
+    """{kernel: {shape: calls}} of one cycle's segment-kernel calls."""
+    import collections
+
+    from cook_tpu_torch.ops import segments as seg
+
+    seen = collections.defaultdict(collections.Counter)
+    saved = (seg.blocked_cumsum, seg.scatter_add_ordered_, seg.sum_ordered)
+
+    def cumsum(x):
+        k = 1 if x.dim() == 1 else x.shape[1]
+        route, ctas, _ = seg.blocked_cumsum_plan(x.shape[0])
+        seen["blocked_cumsum"][f"{x.shape[0]}x{k} {route}/{ctas}"] += 1
+        return saved[0](x)
+
+    def scatter(out, idx, vals):
+        k = 1 if out.dim() == 1 else out.shape[1]
+        route = seg.scatter_plan(idx.shape[0], out.shape[0])[0]
+        seen["ordered_scatter"][
+            f"{idx.shape[0]}x{out.shape[0]}x{k} {route}"] += 1
+        return saved[1](out, idx, vals)
+
+    def total(x):
+        seen["sum_ordered"][str(x.shape[0])] += 1
+        return saved[2](x)
+
+    seg.blocked_cumsum, seg.scatter_add_ordered_, seg.sum_ordered = \
+        cumsum, scatter, total
+    try:
+        w.cycle(**cycle_kw)
+    finally:
+        seg.blocked_cumsum, seg.scatter_add_ordered_, seg.sum_ordered = \
+            saved
+    return {k: dict(v.most_common()) for k, v in seen.items()}
 
 
 def main(argv=None) -> dict:
@@ -129,7 +169,9 @@ def main(argv=None) -> dict:
     bh_ms = sum(k[1] for k in bh)
     cs = [k for k in kernels if "blocked_cumsum" in k[0]]
     osc = [k for k in kernels if "ordered_scatter" in k[0]]
+    so = [k for k in kernels if "sum_ordered" in k[0]]
     sync_sources = _sync_sources(w)
+    call_shapes = _call_shapes(w)
     if a.trace:
         os.makedirs(a.trace, exist_ok=True)
         prof.export_chrome_trace(os.path.join(a.trace, "cycle_trace.json"))
@@ -156,6 +198,9 @@ def main(argv=None) -> dict:
         "blocked_cumsum_calls_per_cycle": sum(k[2] for k in cs),
         "ordered_scatter_ms_per_cycle": sum(k[1] for k in osc),
         "ordered_scatter_calls_per_cycle": sum(k[2] for k in osc),
+        "sum_ordered_ms_per_cycle": sum(k[1] for k in so),
+        "sum_ordered_calls_per_cycle": sum(k[2] for k in so),
+        "call_shapes": call_shapes,
         "host_syncs_per_cycle": sum(
             v for k, v in syncs.items() if k.startswith("cuda")),
         "sync_events_per_cycle": syncs,

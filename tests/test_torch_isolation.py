@@ -380,3 +380,98 @@ def test_host_depletion_is_bit_reproducible_on_cuda():
     for lane in (1, 2, 3, 4):
         assert torch.equal(first[lane], second[lane])
         assert torch.equal(first[lane].cpu(), on_cpu[lane])
+
+
+def test_sum_ordered_rejects_other_devices():
+    from cook_tpu_torch.ops import segments
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        segments.sum_ordered(torch.zeros(40, device="meta"))
+
+
+@pytest.mark.cuda
+def test_sum_ordered_kernel_equals_plain_on_cuda(monkeypatch):
+    """The ordered f32 sum kernel is bit-equal to its plain version (which
+    tests/test_torch_sum.py holds bit-equal to XLA-CPU's jnp.sum) and to
+    itself from run to run, one launch a call, at chip_smoke.py's sizes:
+    one element (-0.0 stays), sizes around a window and a level, the
+    dense round's D = 1,024 and H = 16,384, the kernel's largest n."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs on the GPU machine only")
+    import chip_smoke
+    from cook_tpu_torch.ops import fused_match as fm
+    from cook_tpu_torch.ops import segments
+
+    bits = lambda t: t.view(torch.int32)
+    for label, x in chip_smoke.sum_cases(torch.device("cuda")):
+        want = segments.sum_ordered_plain(x)
+        before = fm.LAUNCHES["sum_ordered"]
+        with monkeypatch.context() as m:
+            m.setattr(segments, "sum_ordered_plain", None)
+            first = segments.sum_ordered(x)
+            second = segments.sum_ordered(x)
+        torch.cuda.synchronize()
+        assert fm.LAUNCHES["sum_ordered"] == before + 2, label
+        assert torch.equal(bits(first), bits(want)), label
+        assert torch.equal(bits(first), bits(second)), label
+
+
+@pytest.mark.cuda
+def test_blocked_cumsum_routes_on_cuda():
+    """blocked_cumsum at its routes' edges (chip_smoke.cumsum_edges: one
+    CTA, the cluster around its chunk edges and at its largest n, the
+    device-memory route one row past it, k = 1..3, strided views):
+    bit-equal to its plain version and run to run, each call counted
+    under its route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs on the GPU machine only")
+    import chip_smoke
+    from cook_tpu_torch.ops import fused_match as fm
+    from cook_tpu_torch.ops import segments
+
+    bits = lambda t: t.view(torch.int32)
+    for label, x in chip_smoke.cumsum_edges(torch.device("cuda")):
+        route = segments.blocked_cumsum_plan(x.shape[0])[0]
+        name = "blocked_cumsum/global" if route == "global" \
+            else "blocked_cumsum"
+        before = fm.LAUNCHES[name]
+        first, second = segments.blocked_cumsum(x), segments.blocked_cumsum(x)
+        want = segments.blocked_cumsum_plain(x)
+        torch.cuda.synchronize()
+        assert fm.LAUNCHES[name] == before + 2, label
+        assert torch.equal(bits(first), bits(want)), label
+        assert torch.equal(bits(first), bits(second)), label
+
+
+@pytest.mark.cuda
+def test_ordered_scatter_edges_on_cuda():
+    """ordered_scatter at its edges (chip_smoke.scatter_edges: one
+    target, all dropped, int64 keys beyond int32, k = 1..4, many long
+    runs, the credits' transposed copy, and the shapes beyond the
+    one-launch route): bit-equal to its plain version and run to run,
+    one launch a call under the route scatter_plan names, and the
+    one-launch route calls no torch.sort."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs on the GPU machine only")
+    import chip_smoke
+    from cook_tpu_torch.ops import fused_match as fm
+    from cook_tpu_torch.ops import segments
+
+    bits = lambda t: t.view(torch.int32)
+    sort = torch.sort
+    for label, out, idx, vals in chip_smoke.scatter_edges(
+            torch.device("cuda")):
+        route = segments.scatter_plan(idx.shape[0], out.shape[0])[0]
+        want = segments.scatter_add_ordered_plain_(out.clone(), idx, vals)
+        before = fm.LAUNCHES[route]
+        if route == "ordered_scatter":
+            torch.sort = None       # the one-launch route sorts on chip
+        try:
+            first = segments.scatter_add_ordered_(out.clone(), idx, vals)
+            second = segments.scatter_add_ordered_(out.clone(), idx, vals)
+        finally:
+            torch.sort = sort
+        torch.cuda.synchronize()
+        assert fm.LAUNCHES[route] == before + 2, label
+        assert torch.equal(bits(first), bits(want)), label
+        assert torch.equal(bits(first), bits(second)), label

@@ -276,3 +276,31 @@ def test_convert_state_from_jax_arrays():
     _assert_state_equal(jstate, back)
     for k, v in back["host"].items():
         assert v.dtype == rs.state["host"][k].dtype, k
+
+
+def test_profile_call_shapes_counts_each_segment_kernel():
+    """profile_cycle's census of one cycle's segment-kernel calls (the
+    call shapes PERF.md lists for the card): the sequential cycle
+    scans and scatters but sums nothing; the batched one's dense rounds
+    size their window with sum_ordered, three calls a round. The
+    wrappers are restored afterwards."""
+    from cook_tpu_torch import profile_cycle
+    from cook_tpu_torch.ops import segments
+
+    w = entry.resident_workload(R=400, P=3000, H=160, U=20, C=64,
+                                forb_cap=64, device="cpu")
+    seq = profile_cycle._call_shapes(w, sequential=True)
+    bat = profile_cycle._call_shapes(w, sequential=False, match_kw={
+        "head_exact": 0, "rounds": 1})
+    assert segments.sum_ordered.__name__ == "sum_ordered"
+    assert segments.blocked_cumsum.__name__ == "blocked_cumsum"
+    assert seq["blocked_cumsum"] and seq["ordered_scatter"]
+    assert "sum_ordered" not in seq
+    # mean_mem and mean_cpus over the D = 64 candidates, absorb over the
+    # Hcap = 256 host lanes, once a dense round
+    rounds = bat["sum_ordered"]["256"]
+    assert rounds >= 1 and bat["sum_ordered"] == {"64": 2 * rounds,
+                                                  "256": rounds}
+    assert all(k.endswith("one_cta/1") for k in bat["blocked_cumsum"])
+    assert all(k.endswith(" ordered_scatter")
+               for k in bat["ordered_scatter"])

@@ -116,3 +116,97 @@ def test_scatter_checks():
     out = tseg.scatter_add_ordered_(z, torch.zeros(0, dtype=torch.long),
                                     torch.zeros(0))
     assert torch.equal(out, torch.zeros(4))
+
+
+@pytest.mark.parametrize("n,T,route,jbits,digits", [
+    (8192, 16384, "ordered_scatter", 13, (8, 7)),      # the bids
+    (32768, 500, "ordered_scatter", 15, (9,)),         # the quota usage
+    (16384, 500, "ordered_scatter", 14, (9,)),
+    (2048, 16384, "ordered_scatter", 11, (8, 7)),      # the credits
+    (1, 1, "ordered_scatter", 1, (1,)),
+    (7, 300, "ordered_scatter", 3, (9,)),
+    (32768, 65535, "ordered_scatter", 15, (8, 8)),
+    (32769, 500, "ordered_scatter/sorted", 0, ()),
+    (100, 65536, "ordered_scatter/sorted", 0, ())])
+def test_scatter_plan(n, T, route, jbits, digits):
+    """The shape rule and the radix plan of the one-launch route: every
+    main-path call takes it; a word (key << jbits | j) holds 0..T and
+    0..n-1 in 31 bits; one or two passes of <= 9-bit digits cover the
+    key's bits."""
+    assert tseg.scatter_plan(n, T) == (route, jbits, digits)
+    if route == "ordered_scatter":
+        assert (1 << jbits) >= n and sum(digits) == T.bit_length()
+        assert jbits + sum(digits) <= 31 and max(digits) <= 9
+
+
+def _radix_model(idx, T, warps=32):
+    """The one-launch kernel's sort in numpy, step for step: words
+    (key << jbits | j) with dropped keys as T; per pass, each warp's
+    slice of the words in their current order, a (digit, warp) histogram
+    scanned digit-major, then each warp's words placed in order."""
+    n = len(idx)
+    _, jbits, digits = tseg.scatter_plan(n, T)
+    key = np.where((idx < 0) | (idx >= T), T, idx).astype(np.int64)
+    words = key << jbits | np.arange(n)
+    per = -(-(-(-n // warps)) // 32) * 32
+    shift = jbits
+    for d in digits:
+        dig = (words >> shift) & ((1 << d) - 1)
+        hist = np.zeros((1 << d, warps), np.int64)
+        for w in range(warps):
+            np.add.at(hist[:, w], dig[w * per:(w + 1) * per], 1)
+        cursor = (np.cumsum(hist.reshape(-1)) - hist.reshape(-1)).reshape(
+            hist.shape)
+        out = np.empty_like(words)
+        for i in range(n):
+            w = i // per
+            out[cursor[dig[i], w]] = words[i]
+            cursor[dig[i], w] += 1
+        words, shift = out, shift + d
+    return words >> jbits, words & ((1 << jbits) - 1)
+
+
+@pytest.mark.parametrize("n,T", [(8192, 16384), (2048, 16384), (3000, 500),
+                                 (1, 1), (37, 5)])
+def test_radix_model_is_a_stable_sort(n, T):
+    """The kernel's sort (modelled above) equals a stable argsort of the
+    keys, dropped keys last: the walk then sees each target's updates in
+    update order. Half the updates hit one target, some keys fall
+    outside [0, T) on both sides."""
+    rng = np.random.default_rng(n + T)
+    idx = np.where(rng.random(n) < 0.5, T // 2,
+                   rng.integers(-3, T + 3, n)).astype(np.int64)
+    key, j = _radix_model(idx, T)
+    clamped = np.where((idx < 0) | (idx >= T), T, idx)
+    order = np.argsort(clamped, kind="stable")
+    np.testing.assert_array_equal(j, order)
+    np.testing.assert_array_equal(key, clamped[order])
+
+
+@pytest.mark.parametrize("name", ["ordered_scatter", "blocked_cumsum"])
+def test_kernel_phases_stamps_every_barrier(name):
+    """kernel_phases' instrumented copy of a kernel source stamps after
+    every barrier of the functions it names and leaves the rest of the
+    source as it was (its stamps are what PERF.md's phase cycles read)."""
+    from cook_tpu_torch import kernel_phases
+    from cook_tpu_torch.kernels import build
+
+    src = (build.CSRC / f"{name}.cu").read_text()
+    inst = kernel_phases.instrumented(name)
+    assert "extern \"C\" int read_stamps" in inst
+    regions = kernel_phases._REGIONS[name]
+    assert inst.count("STAMP0();") == sum(k for _, _, k in regions)
+    stamped = inst.count("__syncthreads(); STAMP();") \
+        + inst.count("cluster_barrier(); STAMP();")
+    barriers = 0
+    for start, end, _ in regions:
+        a = src.index(start)
+        body = src[a:src.index(end, a)]
+        barriers += body.count("__syncthreads();") \
+            + body.count("  cluster_barrier();")
+    assert stamped == barriers + (name == "ordered_scatter")
+    back = inst.replace(kernel_phases._HEAD, "", 1)[:-len(kernel_phases._TAIL)]
+    if name == "ordered_scatter":       # the stamp at the kernel's end
+        k = back.rindex("\n  __syncthreads(); STAMP();\n}\n")
+        back = back[:k] + back[k + len("\n  __syncthreads(); STAMP();"):]
+    assert back.replace(" STAMP0();", "").replace(" STAMP();", "") == src
