@@ -1,0 +1,431 @@
+#!/usr/bin/env python3
+"""Benchmarks of the PyTorch/CUDA port (cook_tpu_torch), beside bench.py:
+its cycle and rebalance entries on one NVIDIA GPU.
+
+    python3 bench_torch.py headline     R=10k running, P=100k pending,
+                                        H=10k hosts, U=500 users, C=8192
+                                        considered: the batched matcher
+                                        with the audit-gated head ladder
+    python3 bench_torch.py sequential   the same arrays at C=1024 through
+                                        the sequential walk (match_scan)
+    python3 bench_torch.py small        R=1k, P=10k, H=1k, U=100, C=2048
+                                        (bench.py's `small`), batched
+    python3 bench_torch.py rebalance    the preemption sweep: 50k running
+                                        tasks, 64 decisions, 2,000 hosts,
+                                        500 users, exact and with
+                                        candidate_cap=8192
+
+Each mode draws bench.py's seeded inputs in bench.py's order, runs on the
+card (`--device cpu` with smaller `--R/--P/--H/--U/--C/--T0` runs the
+plain versions on the CPU, as the tests do) and prints one JSON line with
+bench.py's field names where they apply, plus:
+- the card's name and power limit (nvidia-smi);
+- the host clock per cycle or sweep, from the call to the readback of its
+  result (the inputs stay on the card between calls, as in bench.py), and
+  apart from it the CUDA-event time over the same span on the stream;
+- from one profiled call: the device's busy time (the sum of its kernels
+  and copies), its idle share, the launches, and the host syncs (traced
+  with PyTorch's sync debug mode, by source line).
+`value` divides by the host-clock median: each cycle of the port reads
+back predicates between its rounds, so cycles do not pipeline as
+bench.py's marginal method assumes.
+
+Imports torch, numpy and cook_tpu_torch only.
+"""
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+INF = np.float32(3.4e38)
+AUDIT_WINDOW = 512
+# the reference's rebalancer cadence: one sweep every 300 s
+# (config.clj:386), bench.py's vs_baseline divisor
+REBALANCE_PERIOD_MS = 300_000.0
+
+
+def _count(n: int) -> str:
+    return f"{n // 1000}k" if n % 1000 == 0 else str(n)
+
+
+def card_line(dev) -> str | None:
+    """nvidia-smi's `name, power.limit` of the card (None on the CPU)."""
+    if dev.type != "cuda":
+        return None
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def device_fields(dev) -> dict:
+    import torch
+
+    card = card_line(dev)
+    if dev.type != "cuda":
+        return {"card": None, "device": {"platform": "cpu"}}
+    return {"card": card, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}
+
+
+def cycle_setup(R, P, H, U, dev, seed=0):
+    """bench.py::_cycle_setup's arguments of `rank_and_match` (the
+    default mix), drawn in its order, as tensors on `dev`."""
+    import torch
+    from cook_tpu_torch.ops import match as match_ops
+
+    rng = np.random.default_rng(seed)
+    t = lambda a, d: torch.from_numpy(np.asarray(a).astype(d)).to(dev)
+    f32, i32 = np.float32, np.int32
+    args = (
+        t(rng.integers(0, U, R), i32),
+        t(rng.uniform(1, 10, R), f32),
+        t(rng.uniform(1, 4, R), f32),
+        t(rng.integers(0, 3, R), i32),
+        t(rng.integers(0, 100, R), i32),
+        t(np.ones(R), bool),
+        t(np.full(R, 1000.0), f32),
+        t(np.full(R, 200.0), f32),
+        t(rng.integers(0, U, P), i32),
+        t(rng.uniform(1, 10, P), f32),
+        t(rng.uniform(0.5, 4, P), f32),
+        t(np.zeros(P), f32),
+        t(rng.integers(0, 3, P), i32),
+        t(rng.integers(100, 200, P), i32),
+        t(np.ones(P), bool),
+        t(np.full(P, 1000.0), f32),
+        t(np.full(P, 200.0), f32),
+        t(np.full(P, -1), i32),
+        t(np.zeros(P), bool),
+        match_ops.make_hosts(
+            mem=rng.uniform(64, 256, H).astype(f32),
+            cpus=rng.uniform(16, 64, H).astype(f32), device=dev),
+        None,  # forbidden: the constraint-free headline config
+        t(np.full(U, INF), f32), t(np.full(U, INF), f32),
+        t(np.full(U, 1e9), f32),
+    )
+    return args
+
+
+def audit_head_window(res, args, window=AUDIT_WINDOW) -> int:
+    """Head-of-line inversions among the first `window` considerable jobs
+    in queue order (bench.py::_audit_head_window, the coordinator's
+    sampled audit)."""
+    from cook_tpu_torch.ops import match as match_ops
+
+    a = lambda x: x.cpu().numpy()
+    considerable, qr, jh = a(res.considerable), a(res.queue_rank), \
+        a(res.job_host)
+    mem, cpus, gpus = a(args[9]), a(args[10]), a(args[11])
+    hosts = args[19]
+    cons = np.flatnonzero(considerable)
+    order = cons[np.argsort(qr[cons], kind="stable")][:window]
+    n = len(order)
+    jobs = match_ops.Jobs(
+        mem=mem[order], cpus=cpus[order], gpus=gpus[order],
+        valid=np.ones(n, bool), group=np.full(n, -1, np.int32),
+        unique_group=np.zeros(n, bool))
+    forb = np.zeros((n, hosts.mem.shape[0]), bool)
+    return len(match_ops.inversion_positions_np(jobs, hosts, forb,
+                                                jh[order]))
+
+
+def time_calls(fn, n, dev):
+    """Host-clock ms of n calls of `fn` (each ends in a readback) and,
+    on the card, the CUDA-event ms over the same spans; and the last
+    result."""
+    import torch
+
+    cuda = dev.type == "cuda"
+    host, event, out = [], [], None
+    for _ in range(n):
+        if cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        t0 = time.perf_counter()
+        out = fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        if cuda:
+            ev[1].record()
+            ev[1].synchronize()
+            event.append(ev[0].elapsed_time(ev[1]))
+    return np.asarray(host), (np.asarray(event) if cuda else None), out
+
+
+def device_profile(fn, dev, n=2) -> dict:
+    """Busy device ms, idle share, launches and host syncs per call of
+    `fn` (the profiler over n calls; the syncs traced over one); the
+    port's kernels by name from their launch counters."""
+    if dev.type != "cuda":
+        return {"device_busy_ms": None, "device_idle_share": None,
+                "launches": None, "host_syncs": None,
+                "device_note": "not measured: CPU run"}
+    from cook_tpu_torch.ops import fused_match as fm
+    from cook_tpu_torch.profile_cycle import profile_calls, sync_sources
+
+    _, kernels, _, wall_ms = profile_calls(fn, n)
+    busy = sum(k[1] for k in kernels)
+    before = dict(fm.LAUNCHES)
+    sources = sync_sources(fn)
+    return {"device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+            "launches": sum(k[2] for k in kernels),
+            "port_kernel_launches": {k: v - before[k]
+                                     for k, v in fm.LAUNCHES.items()
+                                     if v != before[k]},
+            "host_syncs": sum(sources.values()),
+            "host_sync_sources": sources}
+
+
+def stats(ms) -> dict:
+    if ms is None:
+        return {}
+    return {"median": float(np.median(ms)),
+            "iqr": [float(np.percentile(ms, 25)),
+                    float(np.percentile(ms, 75))],
+            "p50": float(np.percentile(ms, 50)),
+            "p99": float(np.percentile(ms, 99)),
+            "mean": float(np.mean(ms)), "max": float(np.max(ms))}
+
+
+def _prepare(dev) -> float:
+    """Build the kernels on the card (seconds; 0 on the CPU)."""
+    if dev.type != "cuda":
+        return 0.0
+    from cook_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.build_all()
+    return time.perf_counter() - t0
+
+
+def bench_cycle(R=10_000, P=100_000, H=10_000, U=500, C=8_192,
+                label="100k-pending x 10k-offers", sequential=False,
+                cycles=120, device="cuda"):
+    """Match-cycle latency and throughput (headline, sequential, small).
+
+    The batched modes run the coordinator's audit-gated head ladder as
+    bench.py does: the smallest rung (entry.HEAD_LADDER) whose audit of
+    the head window finds no inversion is the converged head, measured
+    beside the top rung (head 256). The sequential mode walks C jobs in
+    queue order (no inversions by construction; the audit is printed)."""
+    import torch
+    from cook_tpu_torch.device import resolve_device
+    from cook_tpu_torch.entry import HEAD_LADDER
+    from cook_tpu_torch.ops import cycle as cycle_ops
+
+    dev = resolve_device(device)
+    build_s = _prepare(dev)
+    t0 = time.perf_counter()
+    args = cycle_setup(R, P, H, U, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def fn_for(head):
+        kw = {} if head is None else {"match_kw": (("head_exact", head),)}
+        return functools.partial(
+            cycle_ops.rank_and_match, num_considerable=C,
+            sequential=sequential, use_kernel=True, **kw)
+
+    converged, audit_inv = None, None
+    t0 = time.perf_counter()
+    if sequential:
+        audit_inv = audit_head_window(fn_for(None)(*args), args)
+    else:
+        for h in HEAD_LADDER:
+            inv = audit_head_window(fn_for(h)(*args), args)
+            if audit_inv is None or inv < audit_inv:
+                audit_inv = inv
+            if inv == 0:
+                converged, audit_inv = h, 0
+                break
+        if converged is None:
+            converged = HEAD_LADDER[-1]
+    first_s = time.perf_counter() - t0
+
+    def one_cycle(fn):
+        # the coordinator's readback: the matched count, then only the
+        # matched prefix of (mat_idx, mat_host)
+        out = fn(*args)
+        n_m = int(out.n_matched)
+        return out.mat_host[:n_m].cpu().numpy()
+
+    def measure(head):
+        fn = fn_for(head)
+        for _ in range(3):
+            one_cycle(fn)
+        return time_calls(lambda: one_cycle(fn), cycles, dev)
+
+    host, event, mh = measure(converged)
+    matched = int(len(mh))
+    hs, es = stats(host), stats(event)
+    dps = matched / (hs["median"] / 1e3)
+    if not sequential and converged != HEAD_LADDER[-1]:
+        host256, _, mh256 = measure(HEAD_LADDER[-1])
+        hs256, matched256 = stats(host256), int(len(mh256))
+    else:
+        hs256, matched256 = hs, matched
+    prof = device_profile(lambda: one_cycle(fn_for(converged)), dev)
+    print(json.dumps({
+        "metric": f"sched decisions/sec @ {label} ("
+                  + ("sequential walk" if sequential
+                     else f"converged head={converged}; head256 floor "
+                          "alongside") + ")",
+        "value": dps,
+        "unit": "decisions/sec",
+        "value_method": f"matched / median host-clock cycle ms over "
+                        f"{cycles} cycles (the call to the readback of the "
+                        "matched prefix; inputs resident on the device)",
+        "cycle_ms_median": hs["median"],
+        "cycle_ms_iqr": hs["iqr"],
+        "value_head256": (None if sequential
+                          else matched256 / (hs256["median"] / 1e3)),
+        "cycle_ms_median_head256": None if sequential else hs256["median"],
+        "cycle_ms_iqr_head256": None if sequential else hs256["iqr"],
+        "p50_cycle_ms": hs["p50"],
+        "p99_cycle_ms": hs["p99"],
+        "p99_method": f"p99 of {cycles} per-cycle host-clock times, the "
+                      "call to the readback of the matched prefix",
+        "mean_cycle_ms": hs["mean"],
+        "max_cycle_ms": hs["max"],
+        "event_ms_p50": es.get("p50"),
+        "event_ms_p99": es.get("p99"),
+        "event_method": (f"CUDA events on the stream around the same "
+                         f"{cycles} spans" if event is not None
+                         else "not measured: CPU run"),
+        "device_busy_ms_per_cycle": prof["device_busy_ms"],
+        "device_idle_share": prof["device_idle_share"],
+        "launches_per_cycle": prof["launches"],
+        "port_kernel_launches_per_cycle": prof.get("port_kernel_launches"),
+        "host_syncs_per_cycle": prof["host_syncs"],
+        "host_sync_sources": prof.get("host_sync_sources"),
+        "matched_per_cycle": matched,
+        "matched_per_cycle_head256": None if sequential else matched256,
+        "adaptive_head_converged": converged,
+        "head_window_inversions": audit_inv,
+        "audit_window": AUDIT_WINDOW,
+        "shape": {"R": R, "P": P, "H": H, "U": U, "C": C,
+                  "sequential": sequential},
+        "build_s": build_s, "setup_s": setup_s, "first_calls_s": first_s,
+        **device_fields(dev),
+    }), flush=True)
+
+
+def bench_rebalance(T0=50_000, P=64, H=2_000, U=500, sweeps=7,
+                    device="cuda"):
+    """The preemption sweep over 50k running tasks (BASELINE config 4,
+    bench.py::bench_rebalance): P=64 decisions as the reference's
+    documented max-preemption example, safe_dru_threshold 0.5,
+    min_dru_diff 0.1; exact, and with candidate_cap=8192."""
+    import torch
+    from cook_tpu_torch.device import resolve_device
+    from cook_tpu_torch.entry import rebalance_args
+    from cook_tpu_torch.ops import rebalance as reb
+
+    dev = resolve_device(device)
+    build_s = _prepare(dev)
+    t0 = time.perf_counter()
+    args, _ = rebalance_args(T0, P, H, U, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def sweep(**kw):
+        r = reb.rebalance(*args, 0.5, 0.1, **kw)
+        # one readback of everything the caller consumes
+        return [x.cpu().numpy() for x in (r.job_placed, r.job_host,
+                                          r.preempted)]
+
+    t0 = time.perf_counter()
+    placed, _, preempted = sweep()
+    first_s = time.perf_counter() - t0
+    host, event, _ = time_calls(sweep, sweeps, dev)
+    cap = 8192
+    sweep(candidate_cap=cap)
+    host_c, event_c, (_, _, preempted_c) = time_calls(
+        lambda: sweep(candidate_cap=cap), sweeps, dev)
+    hs, es, hsc, esc = stats(host), stats(event), stats(host_c), \
+        stats(event_c)
+    prof = device_profile(sweep, dev, n=1)
+    prof_c = device_profile(lambda: sweep(candidate_cap=cap), dev, n=1)
+    print(json.dumps({
+        "metric": f"rebalancer sweep ms @ {_count(T0)} running, {P} "
+                  "preemption decisions",
+        "value": hs["median"],
+        "unit": "ms/sweep",
+        "vs_baseline": REBALANCE_PERIOD_MS / hs["median"],
+        "value_method": f"median of {sweeps} host-clock sweeps, the call to "
+                        "the readback of job_placed, job_host and "
+                        "preempted",
+        "sweep_ms_iqr": hs["iqr"],
+        "event_ms_median": es.get("median"),
+        "event_method": (f"CUDA events on the stream around the same "
+                         f"{sweeps} spans" if event is not None
+                         else "not measured: CPU run"),
+        "placed": int(placed.sum()),
+        "preempted": int(preempted.sum()),
+        "capped8192_ms": hsc["median"],
+        "capped8192_event_ms": esc.get("median"),
+        "capped8192_preempted": int(preempted_c.sum()),
+        "device_busy_ms_per_sweep": prof["device_busy_ms"],
+        "device_idle_share": prof["device_idle_share"],
+        "launches_per_sweep": prof["launches"],
+        "port_kernel_launches_per_sweep": prof.get("port_kernel_launches"),
+        "host_syncs_per_sweep": prof["host_syncs"],
+        "host_sync_sources": prof.get("host_sync_sources"),
+        "capped8192_device_busy_ms": prof_c["device_busy_ms"],
+        "capped8192_launches_per_sweep": prof_c["launches"],
+        "capped8192_host_syncs_per_sweep": prof_c["host_syncs"],
+        "shape": {"T0": T0, "P": P, "H": H, "U": U},
+        "build_s": build_s, "setup_s": setup_s, "first_call_s": first_s,
+        **device_fields(dev),
+    }), flush=True)
+
+
+MODES = {
+    "headline": dict(R=10_000, P=100_000, H=10_000, U=500, C=8_192),
+    "sequential": dict(R=10_000, P=100_000, H=10_000, U=500, C=1_024),
+    "small": dict(R=1_000, P=10_000, H=1_000, U=100, C=2_048),
+    "rebalance": dict(T0=50_000, P=64, H=2_000, U=500),
+}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("mode", nargs="?", default="headline",
+                    choices=sorted(MODES))
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a card) or cpu")
+    for k in ("R", "P", "H", "U", "C", "T0"):
+        ap.add_argument(f"--{k}", type=int, default=None)
+    ap.add_argument("--cycles", type=int, default=120)
+    ap.add_argument("--sweeps", type=int, default=7)
+    a = ap.parse_args(argv)
+    shape = dict(MODES[a.mode])
+    for k in shape:
+        if getattr(a, k) is not None:
+            shape[k] = getattr(a, k)
+    here = os.path.dirname(os.path.abspath(__file__))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    if a.mode == "rebalance":
+        bench_rebalance(**shape, sweeps=a.sweeps, device=a.device)
+    else:
+        label = f"{_count(shape['P'])}-pending x {_count(shape['H'])}-offers"
+        bench_cycle(**shape, label=label,
+                    sequential=a.mode == "sequential", cycles=a.cycles,
+                    device=a.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -5,7 +5,7 @@
 
 1. Prints the card's name and power limit (nvidia-smi) and exits non-zero
    when torch sees no CUDA device.
-2. Builds the five CUDA kernels from csrc/ (nvcc, first use, one
+2. Builds the five CUDA sources of csrc/ (nvcc, first use, one
    process per source, all started together) and prints the build
    seconds and ptxas' register/shared-memory lines.
 3. Holds each kernel against its plain PyTorch version on the card:
@@ -26,8 +26,11 @@
      k = 1..3; strided views): bit-equal to its plain version and across
      two runs; both launch counters must move.
    - sum_ordered (the f32 sum in XLA-CPU's association; the dense
-     round's window size) at D = 1,024 and H = 16,384 and the sizes of
-     sum_cases: bit-equal to its plain version and across two runs.
+     round's window size, the rebalancer's freed resources) at D = 1,024
+     and H = 16,384 and the sizes of sum_cases, past 262,144 elements on
+     its "levels" route (one grid launch a lower tree level, then the
+     one-CTA kernel): bit-equal to its plain version and across two runs;
+     the levels route's counter must move.
    - best_host at D=1024 rows x H=16384 hosts (the batched path's dense
      prefix) on the same mix: no bonus at spread 0.2 and 0, and a
      U(0, 0.5) bonus at spread 0 and 0.2; adversarial: all hosts
@@ -87,7 +90,24 @@
    BATCHED_REPLAY cycles are replayed the same way, match_rounds then
    running every kernel's plain version: mat_idx, mat_host and why_code
    must be equal and no kernel counter may move.
-6. Prints timings as JSON: per cycle CUDA events from the delta upload
+6. The rebalancer (ops/rebalance.py) at bench.py `bench_rebalance`'s
+   shape (BASELINE config 4: T0 = 50,000 running tasks, P = 64
+   preemption decisions, H = 2,000 hosts, U = 500 users, safe DRU 0.5,
+   min DRU diff 0.1): exact, with candidate_cap = 8192, both again as a
+   gpu-mode pool (gpus in the DRU lane, mem and cpus as two feasibility
+   lanes), and a 300,000-task pool with candidate_cap = 8192 (its
+   freed-resource sums take sum_ordered's levels route). Each sweep must
+   launch blocked_cumsum, ordered_scatter (its sorted route: T > 32,768)
+   and sum_ordered, place a job, and make no host sync before its
+   readback (sync debug mode); the same sweep with every wrapper routed
+   to its plain version must give equal job_placed / job_host /
+   preempted and bit-equal spares, and launch no kernel; the 50k sweeps
+   must also equal the same call on the host CPU (the plain versions
+   there are what the CPU tests hold equal to the JAX package). Prints
+   each sweep's CUDA-event and host-clock ms, device busy ms, launches
+   and host syncs; then the usage scatter alone at its shape (50,064 x 501 x
+   2, ordered_scatter's sorted route) against its plain version.
+7. Prints timings as JSON: per cycle CUDA events from the delta upload
    to the prefix readback, and the host clock around the whole cycle
    (including the workload's own bookkeeping); each kernel alone by CUDA
    events, exact_scan also at its dependency floor (S=1024 with one warp
@@ -96,7 +116,8 @@
    `index_add_` and sum_ordered beside torch.sum; the host time each
    kernel wrapper takes per call (enqueue, no sync); all beside the
    card's name and power limit. Then
-   one line {"kernels": [...]} (launches by path), the nvidia-smi line,
+   one line {"kernels": [...]} (every kernel and route the paths
+   launched, with its launches by path), the nvidia-smi line,
    and last {"ok": true, "device": {...}}.
 
 Imports torch, numpy and cook_tpu_torch only. Any failure exits non-zero
@@ -142,6 +163,19 @@ DIV_B = 2048
 # blocked_cumsum's main-path shapes, the first the batched rank's
 # (Pcap, 2) (the cluster route); (8192,) and (16384,) one CTA
 CUMSUM_SHAPES = ((262144, 2), (131072, 2), (8192,), (16384,))
+# the rebalancer: bench.py::bench_rebalance's pool and thresholds; its
+# sweeps by (label, running tasks T0, gpu-mode pool, candidate_cap)
+REB_P, REB_H, REB_U = 64, 2000, 500
+REB_SAFE_DRU, REB_MIN_DRU_DIFF = 0.5, 0.1
+REB_VARIANTS = (("exact", 50_000, False, None),
+                ("capped8192", 50_000, False, 8192),
+                ("gpu_exact", 50_000, True, None),
+                ("gpu_capped8192", 50_000, True, 8192),
+                ("t300k_capped8192", 300_000, False, 8192))
+# the sweeps also run on the host CPU up to this pool size
+REB_CPU_MAX_T0 = 50_000
+# sum_ordered's levels route timed at the 300k pool's T
+SUM_LEVELS_N = 300_000 + REB_P
 
 
 def fail(msg):
@@ -484,6 +518,22 @@ def scatter_edges(device):
     return out
 
 
+def rebalance_usage_case(device):
+    """(out, idx, vals) of the rebalancer's per-user usage scatter at
+    bench_rebalance's shape: T = 50,064 task slots (the 64 fill slots
+    invalid: the drop bucket U) over U + 1 = 501 targets, k=2 (mem,
+    cpus): ordered_scatter's sorted route (n > 32,768)."""
+    import torch
+
+    rng = np.random.default_rng(21)
+    T0, U = 50_000, REB_U
+    users = np.concatenate([rng.integers(0, U, T0), np.full(REB_P, U)])
+    vals = (10.0 ** rng.uniform(-3, 3, (T0 + REB_P, 2))).astype(np.float32)
+    return (torch.zeros((U + 1, 2), device=device),
+            torch.from_numpy(users.astype(np.int32)).to(device),
+            torch.from_numpy(vals).to(device))
+
+
 def cumsum_edges(device):
     """(label, x) of blocked_cumsum's edges, by route: one CTA (n = 1
     with -0.0, 15, 16, 17, 4,097, 16,384), the cluster (16,385: 5 CTAs
@@ -515,13 +565,15 @@ def cumsum_edges(device):
 def sum_cases(device):
     """(label, x) of sum_ordered: the dense round's D = 1,024 and H =
     16,384 (the main path's calls), one element (-0.0 stays), sizes
-    around one window and a level, and the kernel's largest n."""
+    around one window and a level, the one-CTA kernel's largest n and
+    beyond it the levels route (262,145, the 300k rebalance pool's T,
+    ~1M, and 8,388,609: two level launches)."""
     import torch
 
     rng = np.random.default_rng(17)
     out = [("n1_neg_zero", torch.full((1,), -0.0, device=device))]
     for n in (2, 31, 32, 33, 1000, D_MAIN, 1025, H_MAIN, 16385, 100000,
-              262144):
+              262144, 262145, SUM_LEVELS_N, 1048573, 8388609):
         x = (10.0 ** rng.uniform(-3, 3, n)
              * rng.choice([-1.0, 1.0], n)).astype(np.float32)
         x[::97] = 0.0
@@ -550,7 +602,7 @@ def off_route(launches):
     """Launches of the routes for shapes beyond the on-chip designs (the
     main path's calls all fit them)."""
     return launches["ordered_scatter/sorted"] + \
-        launches["blocked_cumsum/global"]
+        launches["blocked_cumsum/global"] + launches["sum_ordered/levels"]
 
 
 def routes_ran(before, names, label):
@@ -697,6 +749,136 @@ def check_cycle_state(w, mat_idx, c, label):
         fail(f"{label} cycle {c}: a matched row is still valid")
 
 
+def _to_cpu(x):
+    """x with every tensor (in tuples, named tuples and dicts) on the
+    CPU."""
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        items = [_to_cpu(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x.cpu() if hasattr(x, "cpu") else x
+
+
+def _first_difference(names, got, want):
+    """The name of the first of two results' tensors that differ (floats
+    by their bits), or None."""
+    import torch
+
+    for name, g, w in zip(names, got, want):
+        if g.is_floating_point():
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        if not torch.equal(g, w):
+            return name
+    return None
+
+
+def rebalance_phase(dev):
+    """The rebalancer's sweeps (REB_VARIANTS) through the kernels, each
+    held against the same sweep through the plain versions. Returns
+    ({label: numbers}, launches of the counted sweeps by kernel)."""
+    import torch
+    from cook_tpu_torch.entry import rebalance_args
+    from cook_tpu_torch.ops import fused_match as fm
+    from cook_tpu_torch.ops import rebalance as reb
+    from cook_tpu_torch.ops import segments as seg
+    from cook_tpu_torch.profile_cycle import profile_calls, sync_sources
+
+    out, launches = {}, dict.fromkeys(fm.LAUNCHES, 0)
+    for label, T0, gpu, cap in REB_VARIANTS:
+        t0 = time.perf_counter()
+        args, kw = rebalance_args(T0, REB_P, REB_H, REB_U, gpu=gpu,
+                                  device=dev)
+        sweep = lambda: reb.rebalance(*args, REB_SAFE_DRU, REB_MIN_DRU_DIFF,
+                                      candidate_cap=cap, **kw)
+        sweep()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        # the counted sweep: counters from 0, CUDA events and the host
+        # clock from the call to the readback
+        fm.reset_launches()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        t = time.perf_counter()
+        res = sweep()
+        got = [x.cpu() for x in res]
+        host_ms = (time.perf_counter() - t) * 1e3
+        ev[1].record()
+        ev[1].synchronize()
+        d = dict(fm.LAUNCHES)
+        for k, v in d.items():
+            launches[k] += v
+        T = T0 + REB_P
+        need = {"blocked_cumsum": 2 * REB_P, "sum_ordered": 2 * REB_P,
+                "ordered_scatter/sorted" if T > seg.SCATTER_ONE_MAX_N
+                else "ordered_scatter": REB_P}
+        if T > seg.SUM_MAX:
+            need["sum_ordered/levels"] = 2 * REB_P
+        for k, n in need.items():
+            if d[k] < n:
+                fail(f"rebalance {label}: {k} launched {d[k]} times, "
+                     f"fewer than {n}")
+        if d["exact_scan"] or d["best_host"]:
+            fail(f"rebalance {label}: a match kernel launched ({d})")
+        if not bool(got[0].any()):
+            fail(f"rebalance {label}: no job placed")
+        syncs = sync_sources(sweep)
+        if syncs:
+            fail(f"rebalance {label}: the sweep synchronised the host "
+                 f"before its readback: {syncs}")
+        _, kernels, _, wall_ms = profile_calls(sweep, 1)
+        events = []
+        for _ in range(3):
+            ev[0].record()
+            [x.cpu() for x in sweep()]
+            ev[1].record()
+            ev[1].synchronize()
+            events.append(ev[0].elapsed_time(ev[1]))
+        # the same sweep through the plain versions
+        before = dict(fm.LAUNCHES)
+        t = time.perf_counter()
+        with plain_kernels():
+            want = [x.cpu() for x in sweep()]
+        plain_s = time.perf_counter() - t
+        if fm.LAUNCHES != before:
+            fail(f"rebalance {label}: the plain replay launched a kernel")
+        bad = _first_difference(res._fields, got, want)
+        if bad:
+            fail(f"rebalance {label}: {bad} differs from the plain "
+                 f"versions'")
+        # the 50k sweeps once more on the host CPU: the port's plain
+        # versions there are what tests/test_torch_rebalance.py holds
+        # equal to the JAX package's, so the card's sort and scatter
+        # orders are held to the reference's too
+        cpu_s = None
+        if T0 <= REB_CPU_MAX_T0:
+            t = time.perf_counter()
+            on_cpu = reb.rebalance(*_to_cpu(args), REB_SAFE_DRU,
+                                   REB_MIN_DRU_DIFF, candidate_cap=cap,
+                                   **_to_cpu(kw))
+            cpu_s = time.perf_counter() - t
+            bad = _first_difference(res._fields, got, on_cpu)
+            if bad:
+                fail(f"rebalance {label}: {bad} on the card differs from "
+                     f"the CPU's")
+        busy = sum(k[1] for k in kernels)
+        out[label] = {
+            "T0": T0, "gpu_mode": gpu, "candidate_cap": cap,
+            "placed": int(got[0].sum()), "preempted": int(got[2].sum()),
+            "sweep_event_ms": float(np.median(events)),
+            "sweep_event_ms_runs": events,
+            "sweep_host_ms_counted": host_ms,
+            "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+            "launches_per_sweep": sum(k[2] for k in kernels),
+            "host_syncs_before_readback": sum(syncs.values()),
+            "kernel_launches": {k: v for k, v in d.items() if v},
+            "plain_replay_s": plain_s, "cpu_run_s": cpu_s,
+            "setup_s": setup_s}
+        print(json.dumps({f"rebalance_{label}": out[label]}), flush=True)
+    return out, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -793,19 +975,31 @@ def main():
     cs_bound_ms, cs_bound_by = cs_bound[CS_MAIN]
 
     # ---- 2c. sum_ordered vs plain on the card ------------------------------
-    sum_err = 0.0
+    sum_err, lv_err = 0.0, 0.0
     sxs = {}
+    before = dict(fm.LAUNCHES)
     for label, x in sum_cases(dev):
-        sum_err = max(sum_err, check_sum(x, label))
+        err = check_sum(x, label)
+        if x.shape[0] > seg.SUM_MAX:
+            lv_err = max(lv_err, err)
+        else:
+            sum_err = max(sum_err, err)
         sxs[x.shape[0]] = x
+    routes_ran(before, ("sum_ordered", "sum_ordered/levels"),
+               "sum_ordered cases")
     print(json.dumps({"sum_ordered_vs_plain": "bit-equal, run to run",
                       "sizes": sorted(sxs)}), flush=True)
     sum_ms = {n: cuda_ms(lambda: seg.sum_ordered(sxs[n]), 50)
-              for n in (D_MAIN, H_MAIN)}
+              for n in (D_MAIN, H_MAIN, SUM_LEVELS_N)}
     sum_plain_ms = cuda_ms(lambda: seg.sum_ordered_plain(sxs[H_MAIN]), 5)
     sum_lib_ms = cuda_ms(lambda: torch.sum(sxs[H_MAIN]), 50)
     # the floats read once, one written; one addition per element
     sum_bound_ms, sum_bound_by = bound(4 * H_MAIN + 4, H_MAIN)
+    # the levels route (both launches of the call) at the 300k pool's T
+    lv_plain_ms = cuda_ms(lambda: seg.sum_ordered_plain(sxs[SUM_LEVELS_N]),
+                          5)
+    lv_lib_ms = cuda_ms(lambda: torch.sum(sxs[SUM_LEVELS_N]), 50)
+    lv_bound = bound(4 * SUM_LEVELS_N + 4, SUM_LEVELS_N)
 
     # ---- 3. best_host vs plain on the card ---------------------------------
     D = D_MAIN
@@ -1034,6 +1228,22 @@ def main():
     if fm.LAUNCHES != b_launches:
         fail("the batched plain replay launched a kernel")
 
+    # ---- 6. the rebalancer: bench_rebalance's sweeps through the kernels -
+    reb_out, reb_launches = rebalance_phase(dev)
+    # its usage scatter alone: ordered_scatter's sorted route
+    o, i, v = rebalance_usage_case(dev)
+    before = dict(fm.LAUNCHES)
+    rs_err, rs_run = check_scatter(o, i, v, "rebalance_usage")
+    routes_ran(before, ("ordered_scatter/sorted",), "rebalance usage")
+    work = o.clone()
+    rs_ms = cuda_ms(lambda: seg.scatter_add_ordered_(work, i, v), 50)
+    rs_plain_ms = cuda_ms(
+        lambda: seg.scatter_add_ordered_plain_(work, i, v), 3)
+    sink = torch.zeros_like(o)
+    rs_lib_ms = cuda_ms(lambda: sink.index_add_(0, i, v), 50)
+    rs_bound = bound(4 * i.shape[0] + 4 * v.numel() + 8 * 2 * o.shape[0],
+                     v.numel())
+
     def cycle_stats(phase, host, match):
         return {
             "cycle_event_ms_median": float(np.median(phase["event_ms"])),
@@ -1087,6 +1297,16 @@ def main():
         "sum_ordered_plain_ms": sum_plain_ms,
         "sum_ordered_bound_ms": sum_bound_ms,
         "torch_sum_ms": sum_lib_ms,
+        "sum_ordered_levels_n": SUM_LEVELS_N,
+        "sum_ordered_levels_plain_ms": lv_plain_ms,
+        "sum_ordered_levels_bound_ms": lv_bound[0],
+        "torch_sum_levels_ms": lv_lib_ms,
+        "rebalance": reb_out,
+        "ordered_scatter_sorted_rebalance_usage_ms": rs_ms,
+        "ordered_scatter_sorted_plain_ms": rs_plain_ms,
+        "ordered_scatter_sorted_bound_ms": rs_bound[0],
+        "index_add_rebalance_usage_ms": rs_lib_ms,
+        "rebalance_usage_longest_run": rs_run,
         "wrapper_host_us_per_call": wrapper_host_us,
         "library_note": "no single PyTorch call computes the sequential "
                         "scan or the masked fitness argmax; "
@@ -1096,8 +1316,8 @@ def main():
                         "torch.sum sum_ordered's in another association",
     }
     print(json.dumps(timings), flush=True)
-    by_path = {k: {"sequential": seq_launches[k], "batched": b_launches[k]}
-               for k in seq_launches}
+    by_path = {k: {"sequential": seq_launches[k], "batched": b_launches[k],
+                   "rebalance": reb_launches[k]} for k in seq_launches}
 
     def entry(name, route, source, replaces, err, ms, plain, bnd, lib,
               **extra):
@@ -1138,7 +1358,23 @@ def main():
               "none: jnp.sum (cook_tpu/ops/match.py:636-649), no "
               "pl.pallas_call", sum_err, sum_ms[H_MAIN], sum_plain_ms,
               (sum_bound_ms, sum_bound_by), sum_lib_ms, n=H_MAIN,
-              ms_by_n=sum_ms)]}), flush=True)
+              ms_by_n=sum_ms),
+        entry("ordered_scatter/sorted", "cuda",
+              "cook_tpu_torch/csrc/ordered_scatter.cu",
+              "none: jax.ops.segment_sum (cook_tpu/ops/rebalance.py:191-194,"
+              " :219-220), no pl.pallas_call", rs_err, rs_ms, rs_plain_ms,
+              rs_bound, rs_lib_ms, case="rebalance_usage_50064x501x2",
+              longest_run=rs_run,
+              ms_note="the whole call: torch.sort of the keys, then the "
+                      "walk kernel"),
+        entry("sum_ordered/levels", "cuda",
+              "cook_tpu_torch/csrc/sum_ordered.cu",
+              "none: jnp.sum past 262,144 elements (cook_tpu/ops/"
+              "rebalance.py:304-308), no pl.pallas_call", lv_err,
+              sum_ms[SUM_LEVELS_N], lv_plain_ms, lv_bound, lv_lib_ms,
+              n=SUM_LEVELS_N,
+              ms_note="the whole call: its level launch and the one-CTA "
+                      "kernel")]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -30,6 +30,15 @@
 // higher level sums its windows from shared memory, a thread each;
 // thread 0 sums the last <= 32 values. n <= 32 x 8,192 (the first
 // level's window sums stay on chip).
+//
+// Beyond that, the "levels" route (segments.sum_ordered_plan): a grid
+// launch per tree level from the bottom, while more than 32 x 8,192
+// values remain, each warp of each CTA summing 32 windows of 32 in the
+// same order as level 0 above (the same padding of -0.0, the same
+// shared-memory tile), into a buffer in device memory; then the one-CTA
+// kernel reduces what is left, whose tree is the rest of n's. At n = 1M
+// the one level launch is 128 CTAs reading 4 MB: device memory bounds
+// it, not one SM.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -110,6 +119,37 @@ sum_ordered_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
+// one tree level over many CTAs: y[b] = the sum of window b's 32 values
+// x[32 b - lo .. 32 b - lo + 31] (-0.0 outside [0, m)), left to right
+// from +0.0, for b < nb; a warp per 32 windows
+constexpr int kLevelThreads = 256;
+
+__global__ void __launch_bounds__(kLevelThreads)
+sum_ordered_levels_kernel(const float* __restrict__ x, float* __restrict__ y,
+                          long long m, long long nb, int lo) {
+  __shared__ float tiles[kLevelThreads / 32 * kTile];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* tile = tiles + warp * kTile;
+  const long long b0 =
+      ((long long)blockIdx.x * (kLevelThreads / 32) + warp) * kWin;
+  if (b0 >= nb) return;  // the whole warp: no block barrier follows
+  const long long e0 = b0 * kWin - lo;
+  float v[kWin];
+#pragma unroll
+  for (int q = 0; q < kWin; ++q) {
+    const long long e = e0 + kWin * q + lane;
+    v[q] = (e >= 0 && e < m) ? x[e] : -0.0f;
+  }
+#pragma unroll
+  for (int q = 0; q < kWin; ++q) tile[slot(kWin * q + lane)] = v[q];
+  __syncwarp();
+  float s = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kWin; ++j)
+    s = __fadd_rn(s, tile[slot(kWin * lane + j)]);
+  if (b0 + lane < nb) y[b0 + lane] = s;
+}
+
 bool g_attr_set = false;
 
 }  // namespace
@@ -134,5 +174,22 @@ extern "C" int sum_ordered_launch(const void* x, void* out, int n,
       sizeof(float) * (warps * kTile + kMaxL1 + kMaxL1 / kWin);
   sum_ordered_kernel<<<1, 32 * warps, smem, (cudaStream_t)stream>>>(
       (const float*)x, (float*)out, n);
+  return (int)cudaGetLastError();
+}
+
+// Plain C entry point of the "levels" route (bound with ctypes): one tree
+// level of m values, nb = ceil(m / 32) windows with lo padding values in
+// front ((32 nb - m) / 2), into y (nb,). Launches on `stream` and returns
+// cudaGetLastError() as an int (0 = launched).
+extern "C" int sum_ordered_levels_launch(const void* x, void* y, long long m,
+                                         long long nb, int lo, void* stream) {
+  if (m <= kWin || nb != (m + kWin - 1) / kWin || lo != (nb * kWin - m) / 2)
+    return (int)cudaErrorInvalidValue;
+  const long long per_cta = (long long)kLevelThreads / 32 * kWin;
+  const long long ctas = (nb + per_cta - 1) / per_cta;
+  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  sum_ordered_levels_kernel<<<(unsigned)ctas, kLevelThreads, 0,
+                              (cudaStream_t)stream>>>(
+      (const float*)x, (float*)y, m, nb, lo);
   return (int)cudaGetLastError();
 }

@@ -8,6 +8,9 @@ cycle_args(...)        -> the seeded `rank_and_match` workload; the base
                           draws are those of __graft_entry__._cycle_args
                           and bench.py::_cycle_setup, so both packages
                           can be fed the same numbers.
+rebalance_args(...)    -> the seeded `rebalance` workload of
+                          bench.py::bench_rebalance (same draws, same
+                          order), optionally laid out as a gpu-mode pool.
 ResidentWorkload(...)  -> a populated `ResidentState` plus a seeded stream
                           of per-cycle deltas: completions credit hosts,
                           matched jobs start running, new pending jobs
@@ -129,6 +132,74 @@ def entry(device="cuda"):
     fn = functools.partial(cycle_ops.rank_and_match, num_considerable=256,
                            use_kernel=True)
     return fn, args
+
+
+def rebalance_arrays(T0=50_000, P=64, H=2_000, U=500, seed=0, gpu=False):
+    """numpy inputs of one `rebalance` call: bench.py::bench_rebalance's
+    draws in its order (T0 running tasks, P pending jobs in the trailing
+    slots, H hosts, U users; safe_dru_threshold 0.5 and min_dru_diff 0.1
+    go with them). `gpu` lays the pool out as the coordinator's
+    rebalance_cycle does for a gpu-mode pool (coordinator.py:2113-2140),
+    from draws made after the others: 1-3 gpus a task and a job, 0-2
+    spare a host, gpus in the mem lane over a gpu share of 8, a zero cpus
+    lane, and the real (mem, cpus) as two feasibility lanes. Returns
+    (tasks, pending, spare_mem, spare_cpus, forbidden, quota mem, cpus,
+    count) as dicts and arrays, and the spare extra lanes or None."""
+    rng = np.random.default_rng(seed)
+    f32, i32 = np.float32, np.int32
+    T = T0 + P
+    tasks = dict(
+        user=np.concatenate([rng.integers(0, U, T0), np.zeros(P)]),
+        mem=np.concatenate([rng.uniform(1, 10, T0), np.zeros(P)]),
+        cpus=np.concatenate([rng.uniform(0.5, 4, T0), np.zeros(P)]),
+        priority=np.zeros(T), start_time=np.arange(T),
+        host=np.concatenate([rng.integers(0, H, T0), np.zeros(P)]),
+        valid=np.arange(T) < T0,
+        mem_share=np.full(T, 100.0), cpus_share=np.full(T, 20.0))
+    pending = dict(
+        user=rng.integers(0, U, P), mem=rng.uniform(1, 10, P),
+        cpus=rng.uniform(0.5, 4, P), priority=np.zeros(P),
+        start_time=np.arange(P) + T, valid=np.ones(P, bool),
+        mem_share=np.full(P, 100.0), cpus_share=np.full(P, 20.0))
+    spare_mem = rng.uniform(0, 4, H)
+    spare_cpus = rng.uniform(0, 2, H)
+    spare_extra = None
+    if gpu:
+        for d, n in ((tasks, T0), (pending, P)):
+            gpus = rng.integers(1, 4, n).astype(f32)
+            if d is tasks:
+                gpus = np.concatenate([gpus, np.zeros(P, f32)])
+            d["extra"] = np.stack([d["mem"], d["cpus"]], -1).astype(f32)
+            d["mem"], d["cpus"] = gpus, np.zeros_like(gpus)
+            d["mem_share"] = np.full(len(gpus), 8.0)
+        spare_extra = np.stack([spare_mem, spare_cpus], -1).astype(f32)
+        spare_mem = rng.integers(0, 3, H)
+        spare_cpus = np.zeros(H)
+    ints = ("user", "priority", "start_time", "host")
+    for d in (tasks, pending):
+        for k, v in d.items():
+            d[k] = v if v.dtype == bool else v.astype(
+                i32 if k in ints else f32)
+    return (tasks, pending, spare_mem.astype(f32), spare_cpus.astype(f32),
+            np.zeros((P, H), bool), np.full(U, INF), np.full(U, INF),
+            np.full(U, 2.0 ** 31, f32)), spare_extra
+
+
+def rebalance_args(T0=50_000, P=64, H=2_000, U=500, seed=0, gpu=False,
+                   device="cuda"):
+    """Tensors on `device` of `rebalance_arrays(...)`: (args, kwargs) of
+    `ops.rebalance.rebalance(*args, safe_dru_threshold,
+    min_dru_diff, **kwargs)`."""
+    from cook_tpu_torch.ops import rebalance as reb
+
+    dev = resolve_device(device)
+    arrays, spare_extra = rebalance_arrays(T0, P, H, U, seed, gpu)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    tasks, pending = ({k: t(v) for k, v in d.items()} for d in arrays[:2])
+    args = (reb.TaskState(**tasks), reb.PendingJobs(**pending),
+            *(t(a) for a in arrays[2:]))
+    return args, ({} if spare_extra is None
+                  else {"spare_extra": t(spare_extra)})
 
 
 class ResidentWorkload:

@@ -47,7 +47,8 @@ _SIGNATURES = {
         "ordered_scatter_launch": [_P] * 4 + [_I] * 7 + [_P],
         "ordered_scatter_sorted_launch": [_P] * 4 + [_I] * 3 + [_P]},
     "sum_ordered": {
-        "sum_ordered_launch": [_P] * 2 + [_I, _P]},
+        "sum_ordered_launch": [_P] * 2 + [_I, _P],
+        "sum_ordered_levels_launch": [_P] * 2 + [_LL, _LL, _I, _P]},
 }
 
 _lock = threading.Lock()

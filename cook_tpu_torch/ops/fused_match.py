@@ -39,7 +39,8 @@ JOB_COLS = 8
 # kernel launches by name, counted by the wrapper where it launches
 LAUNCHES = {"exact_scan": 0, "best_host": 0, "blocked_cumsum": 0,
             "blocked_cumsum/global": 0, "ordered_scatter": 0,
-            "ordered_scatter/sorted": 0, "sum_ordered": 0}
+            "ordered_scatter/sorted": 0, "sum_ordered": 0,
+            "sum_ordered/levels": 0}
 
 
 def reset_launches() -> None:

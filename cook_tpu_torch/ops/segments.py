@@ -176,7 +176,8 @@ def _blocked_cumsum_cuda(values: torch.Tensor) -> torch.Tensor:
 
 
 SUM_WINDOW = 32           # XLA-CPU's tree reduction window
-SUM_MAX = SUM_WINDOW * 8192   # the kernel keeps the first level on chip
+SUM_MAX = SUM_WINDOW * 8192   # the one-CTA kernel keeps its first level
+                              # on chip
 
 
 def sum_ordered(x: torch.Tensor) -> torch.Tensor:
@@ -188,8 +189,9 @@ def sum_ordered(x: torch.Tensor) -> torch.Tensor:
     right from 0, and reduces the window sums the same way until at most
     32 remain, which are summed left to right from 0; one element is
     returned as it is (-0.0 stays). CUDA tensors launch
-    csrc/sum_ordered.cu (n <= SUM_MAX); CPU tensors run the plain
-    version; anything else raises."""
+    csrc/sum_ordered.cu at any length (above SUM_MAX the "levels" route
+    first: sum_ordered_plan); CPU tensors run the plain version;
+    anything else raises."""
     dev = x.device
     if dev.type == "cpu":
         return sum_ordered_plain(x)
@@ -211,6 +213,21 @@ def sum_windows(n: int) -> list[tuple[int, int]]:
     while n > SUM_WINDOW:
         nb = -(-n // SUM_WINDOW)
         out.append((nb, (nb * SUM_WINDOW - n) // 2))
+        n = nb
+    return out
+
+
+def sum_ordered_plan(n: int) -> list[tuple[int, int, int]]:
+    """(values, windows, padding in front) of each tree level that
+    sum_ordered's "levels" route reduces over many CTAs, bottom up: the
+    levels while more than SUM_MAX values remain (none for n <= SUM_MAX).
+    The one-CTA kernel then reduces the last level's windows, whose tree
+    (sum_windows) is the rest of n's."""
+    out = []
+    for nb, lo in sum_windows(n):
+        if n <= SUM_MAX:
+            break
+        out.append((n, nb, lo))
         n = nb
     return out
 
@@ -246,22 +263,32 @@ def _sum_ordered_cuda(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[0]
     if n == 0:
         return x.new_zeros(())
-    if n > SUM_MAX:
-        raise ValueError(f"sum_ordered: {n} elements, the kernel takes "
-                         f"at most {SUM_MAX}")
+    if n >= 2 ** 31:
+        raise ValueError(f"sum_ordered: {n} elements out of range")
     x = x.contiguous()
-    out = torch.empty((), dtype=torch.float32, device=x.device)
+    levels = sum_ordered_plan(n)
+    # the result, then each level's window sums, in one allocation
+    buf = torch.empty(1 + sum(nb for _, nb, _ in levels),
+                      dtype=torch.float32, device=x.device)
     lib = build.load("sum_ordered")
     dev = x.device
+    src, m, off = x.data_ptr(), n, 1
     with torch.cuda.device(dev):
-        rc = lib.sum_ordered_launch(
-            x.data_ptr(), out.data_ptr(), n,
-            torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for m, nb, lo in levels:
+            dst = buf.data_ptr() + 4 * off
+            rc = lib.sum_ordered_levels_launch(src, dst, m, nb, lo, stream)
+            if rc != 0:
+                raise RuntimeError(f"sum_ordered/levels kernel launch "
+                                   f"failed: CUDA error {rc}")
+            LAUNCHES["sum_ordered/levels"] += 1
+            src, m, off = dst, nb, off + nb
+        rc = lib.sum_ordered_launch(src, buf.data_ptr(), m, stream)
     if rc != 0:
         raise RuntimeError(f"sum_ordered kernel launch failed: CUDA error "
                            f"{rc}")
     LAUNCHES["sum_ordered"] += 1
-    return out
+    return buf[0]
 
 
 def segment_cumsum(values: torch.Tensor, seg_ids: torch.Tensor) -> torch.Tensor:

@@ -54,8 +54,9 @@ def _dev_time(evt) -> float:
     return 0.0
 
 
-def _sync_sources(w) -> dict:
-    """{"file:line": count} of the synchronising calls of one cycle."""
+def sync_sources(fn) -> dict:
+    """{"file:line": count} of the synchronising calls of one `fn()`
+    (PyTorch's sync debug mode)."""
     import collections
     import warnings
 
@@ -65,7 +66,7 @@ def _sync_sources(w) -> dict:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            w.cycle()
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
     where = collections.Counter()
@@ -77,6 +78,37 @@ def _sync_sources(w) -> dict:
                 else "/".join(path.split(os.sep)[-2:]))
         where[f"{path}:{r.lineno}"] += 1
     return dict(where.most_common())
+
+
+def profile_calls(fn, n: int):
+    """`fn()` n times under torch.profiler: (the profiler, [(device
+    event, device ms per call, calls per call)] by device time, {sync
+    event: count per call}, host-clock wall ms per call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    syncs = {}
+    for evt in prof.key_averages():
+        if evt.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                       "cudaEventSynchronize", "aten::_local_scalar_dense",
+                       "aten::nonzero"):
+            syncs[evt.key] = evt.count / n
+        t = _dev_time(evt)
+        # device-side events only (kernels, copies): the aten op rows
+        # carry the same device time again
+        if t > 0 and evt.device_type == DeviceType.CUDA:
+            kernels.append((evt.key, t / 1e3 / n, evt.count / n))
+    kernels.sort(key=lambda k: -k[1])
+    return prof, kernels, syncs, wall_ms / n
 
 
 def _call_shapes(w, **cycle_kw) -> dict:
@@ -140,29 +172,8 @@ def main(argv=None) -> dict:
             phases.setdefault(k, []).append(v)
     torch.cuda.synchronize()
 
-    from torch.profiler import ProfilerActivity, profile
     n_prof = 4
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
-            w.cycle()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    from torch.autograd import DeviceType
-    kernels = []
-    syncs = {}
-    for evt in prof.key_averages():
-        if evt.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                       "cudaEventSynchronize", "aten::_local_scalar_dense",
-                       "aten::nonzero"):
-            syncs[evt.key] = evt.count / n_prof
-        t = _dev_time(evt)
-        # device-side events only (kernels, copies): the aten op rows
-        # carry the same device time again
-        if t > 0 and evt.device_type == DeviceType.CUDA:
-            kernels.append((evt.key, t / 1e3 / n_prof, evt.count / n_prof))
-    kernels.sort(key=lambda k: -k[1])
+    prof, kernels, syncs, wall_ms = profile_calls(w.cycle, n_prof)
     dev_ms = sum(k[1] for k in kernels)
     scan_ms = sum(k[1] for k in kernels if "exact_scan" in k[0])
     bh = [k for k in kernels if "best_host" in k[0]]
@@ -170,7 +181,7 @@ def main(argv=None) -> dict:
     cs = [k for k in kernels if "blocked_cumsum" in k[0]]
     osc = [k for k in kernels if "ordered_scatter" in k[0]]
     so = [k for k in kernels if "sum_ordered" in k[0]]
-    sync_sources = _sync_sources(w)
+    sources = sync_sources(w.cycle)
     call_shapes = _call_shapes(w)
     if a.trace:
         os.makedirs(a.trace, exist_ok=True)
@@ -185,9 +196,9 @@ def main(argv=None) -> dict:
         "phase_p99_ms": {k: float(np.percentile(v, 99))
                          for k, v in phases.items()},
         "profiled_cycles": n_prof,
-        "profiled_wall_ms_per_cycle": wall_ms / n_prof,
+        "profiled_wall_ms_per_cycle": wall_ms,
         "device_ms_per_cycle": dev_ms,
-        "device_idle_share": (1.0 - dev_ms * n_prof / wall_ms
+        "device_idle_share": (1.0 - dev_ms / wall_ms
                               if wall_ms > 0 else None),
         "exact_scan_ms_per_cycle": scan_ms,
         "exact_scan_share_of_device": scan_ms / dev_ms if dev_ms else None,
@@ -204,8 +215,8 @@ def main(argv=None) -> dict:
         "host_syncs_per_cycle": sum(
             v for k, v in syncs.items() if k.startswith("cuda")),
         "sync_events_per_cycle": syncs,
-        "traced_syncs": sum(sync_sources.values()),
-        "sync_sources": sync_sources,
+        "traced_syncs": sum(sources.values()),
+        "sync_sources": sources,
         "kernel_launches_per_cycle": sum(k[2] for k in kernels),
         "top_kernels": [{"name": k[0][:90], "ms_per_cycle": k[1],
                          "calls_per_cycle": k[2]} for k in kernels[:20]],

@@ -1,7 +1,8 @@
 """Isolation and device rules of the port (cook_tpu_torch):
 
 * a process running the port never imports jax nor any cook_tpu module;
-* no file of the port, nor chip_smoke.py, imports jax or cook_tpu;
+* no file of the port, nor chip_smoke.py nor bench_torch.py, imports jax
+  or cook_tpu, and bench_torch.py runs on the CPU without them;
 * entry points default to CUDA and raise when it is absent;
 * on a CUDA tensor each kernel wrapper launches its kernel and never
   reaches its plain version, and agrees with that plain version (the
@@ -12,6 +13,7 @@
   skipped without one).
 """
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -70,15 +72,68 @@ def _imports(path):
             yield node.module
 
 
-@pytest.mark.parametrize("name", ["package", "chip_smoke"])
+@pytest.mark.parametrize("name", ["package", "chip_smoke", "bench_torch"])
 def test_no_static_import_of_jax_or_cook_tpu(name):
     files = sorted(PORT.rglob("*.py")) if name == "package" \
-        else [ROOT / "chip_smoke.py"]
+        else [ROOT / f"{name}.py"]
     assert files
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "cook_tpu"), (f, mod)
+
+
+_BENCH_CHILD = r"""
+import json, runpy, sys
+sys.argv = ["bench_torch.py"] + sys.argv[1:]
+runpy.run_path("bench_torch.py", run_name="__main__")
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith("jax.") or n == "jaxlib"
+             or n == "cook_tpu" or n.startswith("cook_tpu."))
+print("BAD", json.dumps(bad))
+"""
+
+BENCH_TOY = {
+    "rebalance": ["--T0", "400", "--P", "6", "--H", "24", "--U", "10",
+                  "--sweeps", "2"],
+    "headline": ["--R", "200", "--P", "1000", "--H", "64", "--U", "16",
+                 "--C", "256", "--cycles", "3"],
+    "sequential": ["--R", "200", "--P", "1000", "--H", "64", "--U", "16",
+                   "--C", "128", "--cycles", "3"],
+}
+
+
+@pytest.mark.parametrize("mode", sorted(BENCH_TOY))
+def test_bench_torch_runs_on_cpu_without_jax(mode):
+    """bench_torch.py MODE --device cpu at a toy shape: one JSON line
+    with bench.py's fields, device fields that say CPU (no device metric
+    measured), and no jax or cook_tpu module in the process."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", _BENCH_CHILD, mode, "--device", "cpu",
+         *BENCH_TOY[mode]], cwd=str(ROOT), env=env, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[-1] == "BAD []", lines[-1]
+    out = json.loads(lines[-2])
+    assert out["device"] == {"platform": "cpu"} and out["card"] is None
+    if mode == "rebalance":
+        for k in ("value", "placed", "preempted", "capped8192_ms",
+                  "capped8192_preempted"):
+            assert out[k] is not None, k
+        assert out["placed"] > 0 and out["launches_per_sweep"] is None
+    else:
+        for k in ("value", "cycle_ms_median", "cycle_ms_iqr",
+                  "p50_cycle_ms", "p99_cycle_ms", "p99_method",
+                  "matched_per_cycle", "head_window_inversions"):
+            assert out[k] is not None, k
+        assert out["matched_per_cycle"] > 0
+        assert out["head_window_inversions"] == 0
+        assert out["event_ms_p99"] is None
+        assert (out["adaptive_head_converged"] is None) == \
+            (mode == "sequential")
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -414,6 +469,71 @@ def test_sum_ordered_kernel_equals_plain_on_cuda(monkeypatch):
         assert fm.LAUNCHES["sum_ordered"] == before + 2, label
         assert torch.equal(bits(first), bits(want)), label
         assert torch.equal(bits(first), bits(second)), label
+
+
+@pytest.mark.cuda
+def test_sum_ordered_levels_route_on_cuda(monkeypatch):
+    """Past 262,144 elements sum_ordered first reduces the lower tree
+    levels over many CTAs (the counted "levels" route: one launch a
+    level), then runs the one-CTA kernel: bit-equal to its plain
+    version and run to run at 262,145, ~1M and 8,388,609 (two levels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs on the GPU machine only")
+    from cook_tpu_torch.ops import fused_match as fm
+    from cook_tpu_torch.ops import segments
+
+    rng = np.random.default_rng(19)
+    bits = lambda t: t.view(torch.int32)
+    for n in (262145, 1048573, 8388609):
+        x = torch.from_numpy((10.0 ** rng.uniform(-3, 3, n)
+                              * rng.choice([-1.0, 1.0], n))
+                             .astype(np.float32)).to("cuda")
+        want = segments.sum_ordered_plain(x)
+        levels = len(segments.sum_ordered_plan(n))
+        before = dict(fm.LAUNCHES)
+        with monkeypatch.context() as m:
+            m.setattr(segments, "sum_ordered_plain", None)
+            first = segments.sum_ordered(x)
+            second = segments.sum_ordered(x)
+        torch.cuda.synchronize()
+        assert fm.LAUNCHES["sum_ordered/levels"] == \
+            before["sum_ordered/levels"] + 2 * levels, n
+        assert fm.LAUNCHES["sum_ordered"] == before["sum_ordered"] + 2, n
+        assert torch.equal(bits(first), bits(want)), n
+        assert torch.equal(bits(first), bits(second)), n
+
+
+@pytest.mark.cuda
+def test_rebalance_kernels_equal_plain_without_host_sync_on_cuda():
+    """The rebalancer on the card at a reduced bench_rebalance shape:
+    exact and capped, its sweep makes no host sync before the readback
+    (PyTorch's sync debug mode set to error), launches blocked_cumsum,
+    ordered_scatter and sum_ordered, and equals the same sweep with every
+    kernel routed to its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs on the GPU machine only")
+    import chip_smoke
+    from cook_tpu_torch.entry import rebalance_args
+    from cook_tpu_torch.ops import fused_match as fm
+    from cook_tpu_torch.ops import rebalance as reb
+
+    for gpu, cap in ((False, None), (False, 512), (True, None)):
+        args, kw = rebalance_args(6000, 8, 200, 50, gpu=gpu, device="cuda")
+        fm.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = reb.rebalance(*args, 0.5, 0.1, candidate_cap=cap, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for k in ("blocked_cumsum", "ordered_scatter", "sum_ordered"):
+            assert fm.LAUNCHES[k] > 0, (gpu, cap, k)
+        with chip_smoke.plain_kernels():
+            want = reb.rebalance(*args, 0.5, 0.1, candidate_cap=cap, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.uint8), w.view(torch.uint8)), \
+                (gpu, cap)
+        assert bool(got.job_placed.any())
 
 
 @pytest.mark.cuda

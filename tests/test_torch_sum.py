@@ -176,3 +176,67 @@ def test_window_size_inputs_show_the_order():
                 np.array(mean_cpus))), 0.0)
         differ += bits(terms.sum().numpy()) != bits(np.asarray(absorb))
     assert differ >= 1
+
+
+# the axis-0 sum of a (T, E) f32 array (the rebalancer's freed extra
+# lanes, cook_tpu/ops/rebalance.py:308): T across the window and level
+# boundaries and past the one-CTA kernel's 262,144
+AXIS0_T = [1, 2, 31, 32, 33, 1000, 1024, 1025, 16385, 50064, 100000,
+           262145, 300000]
+_sum0 = jax.jit(lambda x: jnp.sum(x, 0))
+_sum0_where = jax.jit(lambda m, x: jnp.sum(jnp.where(m[:, None], x, 0.0),
+                                           0))
+
+
+@pytest.mark.parametrize("E", [1, 2, 3])
+@pytest.mark.parametrize("T", AXIS0_T)
+def test_axis0_sum_is_the_1d_order_per_column(T, E):
+    """XLA-CPU reduces each column of `jnp.sum(x, 0)` in the 1-D tree
+    order (its HLO: reduce_window of 32x1 with the 1-D padding, level by
+    level), so the port sums column by column with sum_ordered
+    (rebalance.sum_cols_ordered), bit for bit; the `where` form as the
+    rebalancer writes it too."""
+    from cook_tpu_torch.ops import rebalance as trb
+
+    rng = np.random.default_rng(T * 5 + E)
+    x = mixed(rng, T * E).reshape(T, E)
+    m = rng.random(T) < 0.7
+    got = trb.sum_cols_ordered(torch.from_numpy(x))
+    np.testing.assert_array_equal(bits(got.numpy()), bits(_sum0(x)))
+    got = trb.sum_cols_ordered(torch.where(torch.from_numpy(m)[:, None],
+                                           torch.from_numpy(x), 0.0))
+    np.testing.assert_array_equal(bits(got.numpy()), bits(_sum0_where(m, x)))
+
+
+def test_axis0_sum_no_columns():
+    from cook_tpu_torch.ops import rebalance as trb
+
+    assert trb.sum_cols_ordered(torch.zeros((7, 0))).shape == (0,)
+
+
+@pytest.mark.parametrize("n", [262145, 300000, 1048577])
+def test_sum_ordered_past_the_one_cta_limit(n):
+    """Past SUM_MAX (262,144, the one-CTA kernel's first level on chip)
+    the plain version still takes XLA's order, and sum_ordered_plan names
+    the levels the CUDA route reduces over many CTAs before the one-CTA
+    kernel: the rest of the tree is that of the last level's windows."""
+    rng = np.random.default_rng(n)
+    x = mixed(rng, n)
+    np.testing.assert_array_equal(
+        bits(tseg.sum_ordered(torch.from_numpy(x)).numpy()),
+        bits(np.asarray(_sum(x))))
+    plan = tseg.sum_ordered_plan(n)
+    assert plan and plan[0][0] == n and plan[-1][1] <= tseg.SUM_MAX
+    windows = tseg.sum_windows(n)
+    assert [(nb, lo) for _, nb, lo in plan] == windows[:len(plan)]
+    assert tseg.sum_windows(plan[-1][1]) == windows[len(plan):]
+
+
+def test_sum_ordered_plan_edges():
+    assert tseg.sum_ordered_plan(tseg.SUM_MAX) == []
+    assert tseg.sum_ordered_plan(tseg.SUM_MAX + 1) == [
+        (tseg.SUM_MAX + 1, 8193, 15)]
+    # two level launches once the first level's windows exceed SUM_MAX
+    n = 32 * tseg.SUM_MAX + 1
+    assert [m for m, _, _ in tseg.sum_ordered_plan(n)] == \
+        [n, tseg.SUM_MAX + 1]
