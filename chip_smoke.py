@@ -107,7 +107,43 @@
    each sweep's CUDA-event and host-clock ms, device busy ms, launches
    and host syncs; then the usage scatter alone at its shape (50,064 x 501 x
    2, ordered_scatter's sorted route) against its plain version.
-7. Prints timings as JSON: per cycle CUDA events from the delta upload
+7. The production path end to end (cook_tpu_torch/e2e.py, bench.py
+   `bench_e2e`'s workload): Coordinator.match_cycle over a store of
+   P0 = 100,000 pending jobs, H = 10,000 mock hosts and U = 500 users,
+   through the resident pool, the device cycle, the compact readback,
+   the bulk launch transaction and the mock backend's launches, with
+   completions flowing back as credits; once with 1,024 considered (the
+   sequential walk) and once with 8,192 (match_rounds). First the
+   readback of cycles in flight: in a small pool (one user, no
+   completions) two cycles in flight (pipeline_depth 1) and a consumer
+   thread (synchronous=False) must launch what the inline run launches;
+   then, per matcher and for both modes, E2E_READBACK_CYCLES cycles at
+   the full width with completions flowing back, where every read of a
+   cycle's own pinned copies must equal a plain copy of that cycle's
+   device outputs and no job may launch twice. Then, per matcher, a
+   deterministic run (pinned clocks and uuids, statuses applied inline
+   for a fixed order, no durable log) on the card must launch the same
+   (job uuid, hostname) pairs, cycle by cycle, and run the same dense
+   rounds as the same run on the port's CPU path (its plain versions):
+   E2E_AGREE cycles, and batched more, up to E2E_AGREE_MAX, until one
+   ran a dense round; best_host must launch once per dense round there.
+   The first difference fails. Then E2E_CYCLES cycles after E2E_WARMUP,
+   with bench_e2e's 19 status shards and without its durable log: each
+   cycle must launch exact_scan once and, batched, best_host once per
+   dense round its match_rounds ran (none sequentially); the segment
+   kernels' routes are counted (the running set outgrows the one-launch
+   scatter as the backlog drains). Prints per matcher the host-clock
+   p50 / p99 of match_cycle, matched per cycle, the phase medians
+   (drain, ship, dispatch, readback, launch_txn, backend_launch), the
+   cyclic collector's pauses in the slowest cycles, and, from one
+   profiled cycle, launches and host syncs (by source line).
+8. The coordinator's other device paths (e2e.device_paths): the legacy
+   match_cycle (match_rounds at 8,192, then the sequential walk) in a
+   default pool of 512 hosts and a gpu pool, and rebalance_cycle with
+   its DRU head in both, once on the card and once on the CPU path: the
+   traces (launches, dense rounds, preemptions, decisions) must be
+   equal; exact_scan and best_host must launch and both pools preempt.
+9. Prints timings as JSON: per cycle CUDA events from the delta upload
    to the prefix readback, and the host clock around the whole cycle
    (including the workload's own bookkeeping); each kernel alone by CUDA
    events, exact_scan also at its dependency floor (S=1024 with one warp
@@ -176,6 +212,25 @@ REB_VARIANTS = (("exact", 50_000, False, None),
 REB_CPU_MAX_T0 = 50_000
 # sum_ordered's levels route timed at the 300k pool's T
 SUM_LEVELS_N = 300_000 + REB_P
+# the end-to-end coordinator (bench_e2e's workload): cycles held against
+# the CPU path, timed cycles after warm-up, per matcher (name, consider)
+E2E_SHAPE = dict(P0=100_000, H=10_000, U=500)
+E2E_AGREE = 4
+E2E_AGREE_MAX = 64
+E2E_READBACK_CYCLES = 13
+E2E_CYCLES = 100
+E2E_WARMUP = 5
+E2E_MATCHERS = (("sequential", None), ("batched", C_BATCHED))
+
+
+T_START = time.perf_counter()
+
+
+def mark(phase):
+    """One line with the seconds since the start, at a phase's end."""
+    print(json.dumps({"phase_done": phase,
+                      "elapsed_s": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def fail(msg):
@@ -879,6 +934,225 @@ def rebalance_phase(dev):
     return out, launches
 
 
+def _first_launch_difference(got, want) -> str:
+    k = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    at = lambda x: x[k] if k < len(x) else None
+    return (f"launch {k}: card {at(got)} vs CPU path {at(want)} "
+            f"({len(got)} vs {len(want)} launches)")
+
+
+def e2e_phase(dev):
+    """7: bench_e2e's production path on the card (see the module
+    docstring). Returns ({matcher: stats}, {matcher: launch counts of
+    its timed run})."""
+    import torch
+    from cook_tpu_torch import e2e
+    from cook_tpu_torch.ops import fused_match as fm
+    from cook_tpu_torch.ops import match as match_ops
+    from cook_tpu_torch.profile_cycle import profile_calls, sync_sources
+
+    # the readback of cycles in flight. A small pool, one user, no
+    # completions: the same launches as the inline run
+    small = dict(P0=3000, H=100, U=1, advance=False)
+    ref = e2e.launch_trace(dev, 4, mode="inline", **small)
+    if not ref["launched"]:
+        fail("e2e readback check: the inline run launched nothing")
+    for mode in ("pipelined", "async"):
+        got = e2e.launch_trace(dev, 4, mode=mode, **small)
+        if got["launched"] != ref["launched"]:
+            fail(f"e2e readback check, {mode}: "
+                 + _first_launch_difference(got["launched"],
+                                            ref["launched"]))
+        if mode == "pipelined" and got["max_inflight"] < 2:
+            fail("e2e readback check: never two cycles in flight")
+    # ... and at full width with completions flowing back: every read of
+    # a cycle's own pinned copies equals a plain copy of its outputs,
+    # and no job is launched twice
+    readback = []
+    for name, consider in E2E_MATCHERS:
+        for mode in ("pipelined", "async"):
+            got = e2e.launch_trace(dev, E2E_READBACK_CYCLES, mode=mode,
+                                   audit=True, consider=consider,
+                                   **E2E_SHAPE)
+            label = f"e2e readback check, {name} {mode}, full width"
+            if got["audit_mismatches"]:
+                fail(f"{label}: {got['audit_mismatches'][:3]}")
+            if not got["audited_reads"] or not got["completed"]:
+                fail(f"{label}: {got['audited_reads']} early reads, "
+                     f"{got['completed']} completions")
+            jobs = [u for u, _ in got["launched"]]
+            if len(set(jobs)) != len(jobs):
+                fail(f"{label}: a job launched twice")
+            if mode == "pipelined" and got["max_inflight"] < 2:
+                fail(f"{label}: never two cycles in flight")
+            readback.append({"matcher": name, "mode": mode,
+                             "cycles": E2E_READBACK_CYCLES,
+                             "launched": len(jobs),
+                             "completed": got["completed"],
+                             "early_reads_checked": got["audited_reads"],
+                             "max_inflight": got["max_inflight"]})
+    print(json.dumps({"e2e_readback": readback}), flush=True)
+
+    results, launches = {}, {}
+    for name, consider in E2E_MATCHERS:
+        t0 = time.perf_counter()
+        # batched, the card's run goes on past E2E_AGREE cycles until
+        # one has run a dense round (best_host), up to E2E_AGREE_MAX
+        before = dict(fm.LAUNCHES)
+        card_run = e2e.launch_trace(
+            dev, E2E_AGREE, consider=consider,
+            until_dense=E2E_AGREE_MAX if consider else 0, **E2E_SHAPE)
+        agree_bh = fm.LAUNCHES["best_host"] - before["best_host"]
+        k = len(card_run["dense_rounds"])
+        cpu_run = e2e.launch_trace("cpu", k, consider=consider,
+                                   **E2E_SHAPE)
+        agree_s = time.perf_counter() - t0
+        for c, (g, h) in enumerate(zip(card_run["per_cycle"],
+                                       cpu_run["per_cycle"])):
+            if g != h:
+                fail(f"e2e {name} cycle {c}: "
+                     + _first_launch_difference(g, h))
+        if card_run["dense_rounds"] != cpu_run["dense_rounds"]:
+            fail(f"e2e {name}: dense rounds {card_run['dense_rounds']} "
+                 f"on the card, {cpu_run['dense_rounds']} on the CPU path")
+        agreed = [len(x) for x in card_run["per_cycle"]]
+        if not sum(agreed[:k]):
+            fail(f"e2e {name}: the agreement cycles launched nothing")
+        agree_dense = sum(card_run["dense_rounds"])
+        if consider is not None and not agree_dense:
+            fail(f"e2e {name}: no dense round in {k} agreement cycles")
+        if agree_bh != agree_dense:
+            fail(f"e2e {name}: best_host launched {agree_bh} times in "
+                 f"{agree_dense} dense rounds of the agreement")
+
+        t0 = time.perf_counter()
+        # no durable log here (bench_torch.py e2e keeps bench_e2e's log,
+        # rotation and retention): its rotation checkpoints stall
+        # cycles for seconds, which the smoke need not wait out
+        w = e2e.Workload(consider=consider, device=dev, durable=False,
+                         **E2E_SHAPE)
+        setup_s = time.perf_counter() - t0
+        e2e.apply_gc_discipline()
+        try:
+            per = []
+            fm.reset_launches()
+            snap = [dict(fm.LAUNCHES), match_ops.ROUNDS["dense"]]
+
+            def on_cycle(c, stats):
+                d = {k: fm.LAUNCHES[k] - snap[0][k] for k in snap[0]}
+                dense = match_ops.ROUNDS["dense"] - snap[1]
+                snap[0] = dict(fm.LAUNCHES)
+                snap[1] = match_ops.ROUNDS["dense"]
+                per.append((d["exact_scan"], d["best_host"], dense))
+                if d["exact_scan"] != 1:
+                    fail(f"e2e {name} cycle {c}: exact_scan launched "
+                         f"{d['exact_scan']} times")
+                if d["best_host"] != dense or (consider is None and dense):
+                    fail(f"e2e {name} cycle {c}: best_host launched "
+                         f"{d['best_host']} times in {dense} dense rounds")
+
+            r = e2e.run_cycles(w, E2E_CYCLES, E2E_WARMUP, on_cycle=on_cycle)
+            # every route counts here: the running set outgrows the
+            # one-launch scatter (Rcap > 32,768) as the backlog drains
+            launches[name] = dict(fm.LAUNCHES)
+            if consider is not None and not any(p[2] for p in per):
+                fail(f"e2e {name}: no cycle reached a dense round")
+
+            def one_cycle():
+                w.coord.match_cycle(e2e.POOL)
+                w.advance()
+
+            _, kernels, _, prof_wall = profile_calls(one_cycle, 1)
+            sources = sync_sources(one_cycle)
+            busy = sum(k[1] for k in kernels)
+            n_cycles = E2E_WARMUP + E2E_CYCLES
+            s = e2e.summary(r)
+            results[name] = {
+                "C": min(consider or 1024, w.rp.Pcap), **E2E_SHAPE,
+                "agreement_cycles": k,
+                "agreement_launches_per_cycle": agreed,
+                "agreement_dense_rounds": card_run["dense_rounds"],
+                "agreement_best_host_launches": agree_bh,
+                "agreement_s": agree_s, "setup_s": setup_s,
+                "seed_submit_s": w.seed_s,
+                "p50_cycle_ms": s["p50_cycle_ms"],
+                "p99_cycle_ms": s["p99_cycle_ms"],
+                "mean_cycle_ms": s["mean_cycle_ms"],
+                "max_cycle_ms": s["max_cycle_ms"],
+                "cycles": s["cycles"],
+                "matched_per_cycle": s["matched_per_cycle"],
+                "value": s["value"],
+                "phase_median_ms": s["phase_median_ms"],
+                "resyncs": s["resyncs"],
+                "gc_refreezes": s["gc_refreezes"],
+                "gc_ms_median": s["gc_ms_median"],
+                "gc_ms_max": s["gc_ms_max"],
+                "worst_cycles": s["worst_cycles"],
+                "kernel_launches": launches[name],
+                "exact_scan_launches_per_cycle":
+                    launches[name]["exact_scan"] / n_cycles,
+                "best_host_launches_per_cycle":
+                    launches[name]["best_host"] / n_cycles,
+                "dense_rounds_per_cycle": [p[2] for p in per[-5:]],
+                "launches_per_cycle": sum(k[2] for k in kernels),
+                "device_busy_ms_per_cycle": busy,
+                "device_idle_share": (1.0 - busy / prof_wall
+                                      if prof_wall else None),
+                "host_syncs_per_cycle": sum(sources.values()),
+                "host_sync_sources": sources,
+                "pending_steady": len(w.store.pending_jobs(e2e.POOL)),
+                "running_steady": len(
+                    w.store.running_instances(e2e.POOL)),
+            }
+        finally:
+            w.close()
+        torch.cuda.synchronize()
+        print(json.dumps({"e2e": name, **results[name]}), flush=True)
+    return results, launches
+
+
+
+def paths_phase(dev):
+    """8: the coordinator's device paths besides the resident cycle
+    (`e2e.device_paths`: the legacy match_cycle, batched and sequential,
+    in a default and a gpu pool; rebalance_cycle with its DRU head in
+    both) on the card and on the port's CPU path: the traces must be
+    equal, and the card's run must launch exact_scan and best_host and
+    preempt in both pools."""
+    from cook_tpu_torch import e2e
+    from cook_tpu_torch.ops import fused_match as fm
+
+    t0 = time.perf_counter()
+    before = dict(fm.LAUNCHES)
+    card = e2e.device_paths(dev)
+    launched = {k: fm.LAUNCHES[k] - before[k] for k in before}
+    card_s = time.perf_counter() - t0
+    cpu = e2e.device_paths("cpu")
+    for a, b in zip(card, cpu):
+        if a != b:
+            what = a[:4] if a[0] == "cycle" else a[:2]
+            fail(f"coordinator paths: {what} differs on the card from "
+                 f"the CPU path")
+    if len(card) != len(cpu):
+        fail("coordinator paths: the traces differ in length")
+    for k in ("exact_scan", "best_host"):
+        if not launched[k]:
+            fail(f"coordinator paths: {k} never launched")
+    preempted = {t[1]: t[2] for t in card if t[0] == "rebalance"}
+    if not all(preempted.values()):
+        fail(f"coordinator paths: preempted {preempted}")
+    out = {"cycles": [{"pool": t[1], "consider": t[2], "dense_rounds": t[3],
+                       "launched": len(t[4])}
+                      for t in card if t[0] == "cycle"],
+           "preempted": preempted,
+           "placed": {t[1]: t[3] for t in card if t[0] == "rebalance"},
+           "kernel_launches": {k: v for k, v in launched.items() if v},
+           "card_s": card_s}
+    print(json.dumps({"coordinator_paths": out}), flush=True)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -908,6 +1182,7 @@ def main():
                 print(f"ptxas[{name}]: {line.strip()}", flush=True)
     dev = torch.device("cuda", 0)
 
+    mark("build")
     # ---- 2. exact_scan vs plain on the card --------------------------------
     cluster = fm.exact_scan_cluster()
     print(json.dumps({"exact_scan_cluster_ctas": cluster}), flush=True)
@@ -1109,6 +1384,7 @@ def main():
     bh_bonus_bound_ms, _ = bound(
         bh_bytes + D * H_MAIN * 4, bh_ops + feas * (BH_OPS_FIT + BH_OPS_BONUS))
 
+    mark("kernels")
     # ---- 4. the sequential path: resident cycles through exact_scan --------
     t0 = time.perf_counter()
     w = resident_workload(device=dev, seed=0)
@@ -1154,6 +1430,7 @@ def main():
         fail("the sequential plain replay launched a kernel")
     del w, w2
 
+    mark("sequential")
     # ---- 5. the batched path: match_rounds through both kernels ------------
     t0 = time.perf_counter()
     wb = resident_workload(device=dev, seed=0, C=C_BATCHED)
@@ -1228,6 +1505,7 @@ def main():
     if fm.LAUNCHES != b_launches:
         fail("the batched plain replay launched a kernel")
 
+    mark("batched")
     # ---- 6. the rebalancer: bench_rebalance's sweeps through the kernels -
     reb_out, reb_launches = rebalance_phase(dev)
     # its usage scatter alone: ordered_scatter's sorted route
@@ -1243,6 +1521,14 @@ def main():
     rs_lib_ms = cuda_ms(lambda: sink.index_add_(0, i, v), 50)
     rs_bound = bound(4 * i.shape[0] + 4 * v.numel() + 8 * 2 * o.shape[0],
                      v.numel())
+
+    mark("rebalance")
+    # ---- 7. the production path end to end: Coordinator over a store -----
+    e2e_out, e2e_launches = e2e_phase(dev)
+    mark("e2e")
+    # ---- 8. the coordinator's other device paths, card against CPU ------
+    paths_out = paths_phase(dev)
+    mark("paths")
 
     def cycle_stats(phase, host, match):
         return {
@@ -1302,6 +1588,8 @@ def main():
         "sum_ordered_levels_bound_ms": lv_bound[0],
         "torch_sum_levels_ms": lv_lib_ms,
         "rebalance": reb_out,
+        "e2e": e2e_out,
+        "coordinator_paths": paths_out,
         "ordered_scatter_sorted_rebalance_usage_ms": rs_ms,
         "ordered_scatter_sorted_plain_ms": rs_plain_ms,
         "ordered_scatter_sorted_bound_ms": rs_bound[0],
@@ -1317,7 +1605,10 @@ def main():
     }
     print(json.dumps(timings), flush=True)
     by_path = {k: {"sequential": seq_launches[k], "batched": b_launches[k],
-                   "rebalance": reb_launches[k]} for k in seq_launches}
+                   "rebalance": reb_launches[k],
+                   "e2e_sequential": e2e_launches["sequential"][k],
+                   "e2e_batched": e2e_launches["batched"][k]}
+               for k in seq_launches}
 
     def entry(name, route, source, replaces, err, ms, plain, bnd, lib,
               **extra):

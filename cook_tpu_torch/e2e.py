@@ -1,0 +1,472 @@
+"""bench.py::bench_e2e's workload on the port: the production match path
+end to end, `Coordinator.match_cycle` over a durable store.
+
+    store events -> ResidentPool mirrors and delta packing -> ship ->
+    device_cycle (exact_scan, or match_rounds with exact_scan and
+    best_host) -> the compact readback -> the bulk launch transaction in
+    the store -> the mock backend's launches -> completions flowing back
+    as credits
+
+The same workload and defaults as bench_e2e (bench.py:733): P0 = 100,000
+pending jobs and H = 10,000 `MockHost`s (mem U(64, 256) GiB, cpus U(16,
+64)), U = 500 users, jobs of mem U(1, 10) GiB and cpus U(0.5, 4) that
+run 10 s on the mock's virtual clock, the backlog refilled as jobs
+complete (the clock advances 1 s a cycle), a durable log in a temp file
+with bench_e2e's rotation and retention threads, `status_shards=19`, a
+synchronous consumer unless asked otherwise; the seed draws hosts, then
+the backlog, then each refill from one generator, in bench_e2e's order.
+Job uuids are deterministic (a counter), so two runs of one seed submit
+the same jobs.
+
+`bench_torch.py e2e` and chip_smoke.py's e2e phase drive it. Imports
+torch, numpy and cook_tpu_torch only.
+"""
+from __future__ import annotations
+
+import contextlib
+import gc
+import itertools
+import os
+import sys
+import tempfile
+import threading
+import time
+import uuid
+
+import numpy as np
+
+from cook_tpu_torch.backends.base import ClusterRegistry
+from cook_tpu_torch.backends.mock import MockCluster, MockHost
+from cook_tpu_torch.scheduler.coordinator import Coordinator, SchedulerConfig
+from cook_tpu_torch.state import model
+from cook_tpu_torch.state.model import Job
+from cook_tpu_torch.state.pools import PoolRegistry
+from cook_tpu_torch.state.store import JobStore
+
+POOL = "default"
+# bench_e2e's constants: the seed, the tasks' runtime on the mock's
+# clock, the store's shards, the log rotation and the retention
+SEED = 0
+RUNTIME_S = 10.0
+STORE_SHARDS = 4
+ROTATE_LINES = 1_000_000
+RETENTION_S = 120.0
+# bench_e2e's phase metrics, in the coordinator's names: the cycle
+# thread's, then the consume's (inline on the same thread here)
+PHASES = ("drain_ms", "ship_ms", "dispatch_ms", "readback_ms",
+          "consume_fold_ms", "launch_loop_ms", "consume_frame_ms",
+          "launch_txn_ms", "consume_bookkeep_ms", "backend_launch_ms")
+
+
+def apply_gc_discipline() -> None:
+    """Move the store's long-lived object graph out of the cyclic
+    collector's reach (a copy of cook_tpu/rest/server.py:161, which the
+    server calls at leadership takeover and bench_e2e after seeding): at
+    100k jobs every gen-2 sweep would walk ~10^6 live objects inside a
+    cycle. Once armed, the coordinator re-collects and re-freezes
+    between match cycles (Coordinator._maybe_refreeze)."""
+    gc.collect()
+    gc.freeze()
+
+
+@contextlib.contextmanager
+def pinned_clocks(wall_s: float = 1_700_000_000.0):
+    """Within the block `time.time()` and the store's clock read
+    `wall_s` and `uuid.uuid4()` counts from 1: two runs of one scenario
+    then stamp the same submit and start times and the same task ids
+    (the mock backend orders completions of one instant by task id)."""
+    counter = itertools.count(1)
+    lock = threading.Lock()
+
+    def uuid4():
+        with lock:
+            return uuid.UUID(int=next(counter))
+
+    saved = (time.time, uuid.uuid4)
+    time.time, uuid.uuid4 = (lambda: wall_s), uuid4
+    model.set_clock(lambda: wall_s)   # the store's clock (now_ms)
+    try:
+        yield
+    finally:
+        time.time, uuid.uuid4 = saved
+        model.reset_clock()
+
+
+def job_uuid(n: int) -> str:
+    """The workload's n-th job uuid (from 0): a counter kept apart from
+    the task ids `pinned_clocks` counts."""
+    return str(uuid.UUID(int=(1 << 64) + n))
+
+
+class Workload:
+    """bench_e2e's store, mock cluster and coordinator, seeded and with
+    the resident pool enabled. `launched` lists every backend launch as
+    (job uuid, hostname), in order."""
+
+    def __init__(self, P0=100_000, H=10_000, U=500, consider=None,
+                 pipeline_depth=None, async_consumer=False, device="cuda",
+                 durable=True, status_shards=19):
+        self.rng = rng = np.random.default_rng(SEED)
+        self.U = U
+        hosts = [MockHost(f"h{i}", mem=float(rng.uniform(64, 256) * 1024),
+                          cpus=float(rng.uniform(16, 64)), pool=POOL)
+                 for i in range(H)]
+        self.log_path = self.snap_path = None
+        if durable:
+            fd, self.log_path = tempfile.mkstemp(prefix="cook_e2e_",
+                                                 suffix=".log")
+            os.close(fd)
+            fd, self.snap_path = tempfile.mkstemp(prefix="cook_e2e_",
+                                                  suffix=".snap")
+            os.close(fd)
+        self.store = JobStore(log_path=self.log_path,
+                              store_shards=STORE_SHARDS)
+        self.cluster = MockCluster(
+            hosts, runtime_fn=lambda s: (RUNTIME_S, True, None),
+            bulk_status=True)
+        reg = ClusterRegistry()
+        reg.register(self.cluster)
+        cfg = SchedulerConfig()
+        if consider:
+            cfg.max_jobs_considered = consider
+        if pipeline_depth is not None:
+            cfg.pipeline_depth = int(pipeline_depth)
+        self.coord = Coordinator(self.store, reg, config=cfg,
+                                 pools=PoolRegistry(POOL),
+                                 status_shards=status_shards, device=device)
+        self.launched: list = []
+        launch = self.cluster.launch_tasks
+
+        def record(pool, specs):
+            self.launched.extend((s.job_uuid, s.hostname) for s in specs)
+            return launch(pool, specs)
+
+        self.cluster.launch_tasks = record
+        self._seq = 0
+        t0 = time.perf_counter()
+        self.store.create_jobs(self.mkjobs(P0))
+        self.seed_s = time.perf_counter() - t0
+        self.coord.enable_resident(pool=POOL,
+                                   synchronous=not async_consumer)
+        self.rp = self.coord._resident[POOL]
+        self._stop = threading.Event()
+        self._threads: list = []
+        self.rotations: list = []
+        self.retired = 0
+
+    def mkjobs(self, n: int) -> list:
+        rng, base = self.rng, self._seq
+        self._seq += n
+        return [Job(uuid=job_uuid(base + i),
+                    user=f"u{int(rng.integers(0, self.U))}",
+                    command="true", pool=POOL,
+                    mem=float(rng.uniform(1, 10) * 1024),
+                    cpus=float(rng.uniform(0.5, 4)))
+                for i in range(n)]
+
+    def advance(self) -> int:
+        """One virtual second: due tasks complete, and as many new jobs
+        are submitted."""
+        done = self.cluster.advance(1.0)
+        if done:
+            self.store.create_jobs(self.mkjobs(done))
+        return done
+
+    def start_threads(self) -> None:
+        """bench_e2e's deployment threads: the snapshot loop's log
+        rotation at ROTATE_LINES and the retention GC."""
+        store, stop = self.store, self._stop
+
+        def rotate_loop():
+            while not stop.wait(2.0):
+                try:
+                    if store.log_lines() >= ROTATE_LINES:
+                        t_r = time.perf_counter()
+                        ticket = store.rotate_log(self.snap_path,
+                                                  wait=False)
+                        if ticket is not None:
+                            ticket.wait()
+                        self.rotations.append(
+                            (time.perf_counter() - t_r) * 1e3)
+                except Exception as e:
+                    print(f"# rotation failed: {e!r}", file=sys.stderr)
+
+        def retention_loop():
+            while not stop.wait(15.0):
+                try:
+                    self.retired += store.gc_completed(
+                        int(RETENTION_S * 1e3))
+                except Exception as e:
+                    print(f"# retention gc failed: {e!r}", file=sys.stderr)
+
+        for fn in (rotate_loop, retention_loop):
+            t = threading.Thread(target=fn, daemon=True)
+            t.start()
+            self._threads.append(t)
+
+    def close(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=30)
+        self.coord.stop()
+        for p in (self.log_path, self.snap_path):
+            if p:
+                try:
+                    os.unlink(p)
+                except OSError:
+                    pass
+
+
+def run_cycles(w: Workload, cycles: int, warmup: int,
+               on_cycle=None) -> dict:
+    """bench_e2e's loop: each cycle one `match_cycle` (timed on the host
+    clock, with the coordinator's phase metrics and the cyclic
+    collector's pauses in it), then one virtual second with its refill.
+    `on_cycle(c, stats)` runs after each cycle's match, before the
+    advance. Returns the measured lists."""
+    co = w.coord
+    wall, matched, resyncs, refreezes = [], [], [], []
+    phases = {k: [] for k in PHASES}
+    gc_ms, gc_gen = [], []
+    # the collector's pauses in this cycle, whichever thread ran them:
+    # [ms, oldest generation collected (-1: none), start of the current]
+    pause = [0.0, -1, 0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            pause[2] = time.perf_counter()
+        else:
+            pause[0] += (time.perf_counter() - pause[2]) * 1e3
+            pause[1] = max(pause[1], info["generation"])
+
+    gc.callbacks.append(on_gc)
+    try:
+        for c in range(warmup + cycles):
+            pause[0], pause[1] = 0.0, -1
+            t_c = time.perf_counter()
+            stats = co.match_cycle(POOL)
+            t_m = time.perf_counter()
+            rs = co.metrics.pop(f"match.{POOL}.resync_ms", None)
+            if rs is not None:
+                resyncs.append((c, rs))
+            refreeze = co.metrics.pop("gc.refreeze_ms", None)
+            if refreeze is not None:
+                refreezes.append((c, refreeze))
+            if c >= warmup:
+                wall.append((t_m - t_c) * 1e3)
+                gc_ms.append(pause[0])
+                gc_gen.append(pause[1])
+                matched.append(stats.matched)
+                for k in PHASES:
+                    phases[k].append(
+                        co.metrics.get(f"match.{POOL}.{k}", 0.0))
+            if on_cycle is not None:
+                on_cycle(c, stats)
+            w.advance()
+    finally:
+        gc.callbacks.remove(on_gc)
+    co.drain_resident(POOL)
+    if co.status_shards is not None:
+        co.status_shards.drain()
+    return {"wall": wall, "matched": matched, "phases": phases,
+            "gc_ms": gc_ms, "gc_gen": gc_gen, "resyncs": resyncs,
+            "gc_refreezes": refreezes, "warmup": warmup}
+
+
+def summary(r: dict) -> dict:
+    """bench_e2e's key names, where they apply, from `run_cycles`."""
+    wall = np.asarray(r["wall"])
+    return {
+        "value": float(np.mean(r["matched"]) / (np.mean(wall) / 1e3)),
+        "unit": "decisions/sec",
+        "p50_cycle_ms": float(np.percentile(wall, 50)),
+        "p99_cycle_ms": float(np.percentile(wall, 99)),
+        "mean_cycle_ms": float(wall.mean()),
+        "max_cycle_ms": float(wall.max()),
+        "matched_per_cycle": float(np.mean(r["matched"])),
+        "phase_median_ms": {k: float(np.median(v))
+                            for k, v in r["phases"].items()},
+        "phase_means_ms": {k: float(np.mean(v))
+                           for k, v in r["phases"].items()},
+        "resyncs": r["resyncs"],
+        "gc_refreezes": r["gc_refreezes"],
+        # the cyclic collector's pauses inside match_cycle
+        "gc_ms_median": float(np.median(r["gc_ms"])),
+        "gc_ms_max": float(np.max(r["gc_ms"])),
+        # the phases of the slowest cycles, and the collector's pause
+        # and oldest generation in each ("cycle" counts the warm-up too,
+        # as resyncs and gc_refreezes do)
+        "worst_cycles": [
+            {"cycle": int(i) + r["warmup"], "wall_ms": float(wall[i]),
+             "gc_ms": float(r["gc_ms"][i]), "gc_gen": int(r["gc_gen"][i]),
+             **{k: float(v[i]) for k, v in r["phases"].items()}}
+            for i in np.argsort(wall)[-5:][::-1]],
+        "cycles": len(wall),
+    }
+
+
+def launch_trace(device, cycles: int, mode: str = "inline",
+                 advance: bool = True, until_dense: int = 0,
+                 audit: bool = False, **kw) -> dict:
+    """A deterministic run of `cycles` cycles of one seeded Workload (no
+    durable log, statuses applied inline, clocks and uuids pinned), for
+    holding one device's run against another's. `mode` is "inline"
+    (pipeline_depth 0), "pipelined" (depth 1: cycle N is consumed after
+    cycle N+1 was dispatched) or "async" (a consumer thread). While no
+    cycle has run a dense round of `match_rounds`, up to `until_dense`
+    cycles in all are run. With `audit`, every read of a cycle's early
+    pinned copies is held against a synchronous copy of the same device
+    outputs. Returns the backend launches of each cycle (sync modes; for
+    "async" one list after the final drain), all launches in order, the
+    dense rounds of each cycle, the most cycles in flight seen at a
+    consume, the tasks completed, and the audit's reads and
+    mismatches."""
+    from cook_tpu_torch.ops import match as match_ops
+    from cook_tpu_torch.scheduler import resident
+
+    depth = 1 if mode == "pipelined" else 0
+    read = resident.read_outputs
+    audited, bad = [0], []
+
+    def read_audited(out, names, n=None):
+        got = read(out, names, n)
+        if out.host is not None:
+            # a plain copy on this thread's stream, ordered after the
+            # cycle that wrote these outputs (nothing writes them later)
+            want = [getattr(out, k).cpu().numpy() for k in names]
+            for k, g, x in zip(names, got, want):
+                x = x if n is None else x[:n]
+                if not np.array_equal(g, x):
+                    bad.append(f"cycle {out.cycle_no} {k}")
+            audited[0] += 1
+        return got
+
+    with pinned_clocks():
+        w = Workload(device=device, durable=False, status_shards=0,
+                     pipeline_depth=depth, async_consumer=mode == "async",
+                     **kw)
+        co, seen = w.coord, [0]
+        consume = co._consume_cycle
+
+        def counted(pool, rp, out):
+            seen[0] = max(seen[0], len(rp._inflight))
+            return consume(pool, rp, out)
+
+        co._consume_cycle = counted
+        if audit:
+            resident.read_outputs = read_audited
+        per, dense, done = [], [], 0
+        try:
+            c = 0
+            while c < cycles or (c < until_dense and not sum(dense)):
+                n0, d0 = len(w.launched), match_ops.ROUNDS["dense"]
+                co.match_cycle(POOL)
+                dense.append(match_ops.ROUNDS["dense"] - d0)
+                if mode != "async":
+                    per.append(list(w.launched[n0:]))
+                if advance:
+                    done += w.advance()
+                c += 1
+            n0 = len(w.launched)
+            co.drain_resident(POOL)
+            per.append(list(w.launched[n0:]))
+        finally:
+            resident.read_outputs = read
+            w.close()
+    return {"per_cycle": per, "launched": list(w.launched),
+            "dense_rounds": dense, "max_inflight": seen[0],
+            "completed": done, "audited_reads": audited[0],
+            "audit_mismatches": bad}
+
+
+# the coordinator's other device paths: a default pool of H_PATHS hosts
+# drawn as bench_e2e draws them and a gpu pool of 8-gpu hosts, both
+# filled past capacity by "greedy" users, then a few "poor" users submit
+PATHS_HOSTS, PATHS_GPU_HOSTS = 512, 32
+PATHS_GREEDY, PATHS_GREEDY_GPU, PATHS_POOR = 6000, 160, 64
+
+
+def device_paths(device) -> list:
+    """One seeded run of the coordinator's device paths besides the
+    resident cycle, clocks and uuids pinned: the legacy `match_cycle`
+    (it re-tensorizes the queue each cycle; `rank_and_match` with the
+    batched matcher at C=8192, then the sequential one at C=1024) in a
+    default pool and in a gpu pool (the gpu DRU rank), and
+    `rebalance_cycle` in both (`_dru_pending_head`, then `rebalance`),
+    each followed by a cycle. Returns the trace: per cycle its dense
+    rounds and the launched (job uuid, hostname) pairs; per rebalance
+    the preempted count, the placed count, the decisions and the
+    preempted jobs."""
+    from cook_tpu_torch.ops import match as match_ops
+    from cook_tpu_torch.scheduler.coordinator import RebalancerParams
+    from cook_tpu_torch.state.pools import DruMode, Pool
+
+    rng = np.random.default_rng(SEED)
+    hosts = [MockHost(f"h{i}", mem=float(rng.uniform(64, 256) * 1024),
+                      cpus=float(rng.uniform(16, 64)), pool=POOL)
+             for i in range(PATHS_HOSTS)]
+    hosts += [MockHost(f"g{i}", mem=1024.0 * 1024, cpus=96.0, gpus=8.0,
+                       pool="gpu") for i in range(PATHS_GPU_HOSTS)]
+    seq = itertools.count()
+
+    def jobs(n, user, pool=POOL, gpus=0.0):
+        return [Job(uuid=job_uuid(next(seq)),
+                    user=f"{user}{int(rng.integers(0, 8))}",
+                    command="true", pool=pool,
+                    mem=float(rng.uniform(1, 10) * 1024),
+                    cpus=float(rng.uniform(2, 8)), gpus=gpus)
+                for _ in range(n)]
+
+    trace = []
+    with pinned_clocks():
+        store = JobStore()
+        cluster = MockCluster(hosts, runtime_fn=lambda s: (3600.0, True,
+                                                           None))
+        reg = ClusterRegistry()
+        reg.register(cluster)
+        pools = PoolRegistry(POOL)
+        pools.add(Pool(name="gpu", dru_mode=DruMode.GPU))
+        cfg = SchedulerConfig(rebalancer=RebalancerParams(
+            safe_dru_threshold=0.0, min_dru_diff=0.05))
+        coord = Coordinator(store, reg, config=cfg, pools=pools,
+                            status_shards=0, device=device)
+        coord.shares.set("default", POOL, mem=64.0 * 1024, cpus=32.0)
+        coord.shares.set("default", "gpu", gpus=8.0, mem=1e9, cpus=1e9)
+        launched = []
+        launch = cluster.launch_tasks
+
+        def record(pool, specs):
+            launched.extend((s.job_uuid, s.hostname) for s in specs)
+            return launch(pool, specs)
+
+        cluster.launch_tasks = record
+
+        def cycle(pool, consider):
+            cfg.max_jobs_considered = consider
+            n0, d0 = len(launched), match_ops.ROUNDS["dense"]
+            coord.match_cycle(pool)
+            trace.append(("cycle", pool, consider,
+                          match_ops.ROUNDS["dense"] - d0, launched[n0:]))
+
+        def rebalance(pool):
+            res = coord.rebalance_cycle(pool)
+            victims = sorted(j.uuid for j in store.jobs.values()
+                             if any(i.preempted for i in j.instances))
+            trace.append(("rebalance", pool, res["preempted"],
+                          res["placed"], res.get("decisions", []),
+                          victims))
+
+        try:
+            store.create_jobs(jobs(PATHS_GREEDY, "greedy"))
+            store.create_jobs(jobs(PATHS_GREEDY_GPU, "greedy", "gpu", 2.0))
+            cycle(POOL, 8192)
+            cycle(POOL, 1024)
+            cycle("gpu", 1024)
+            store.create_jobs(jobs(PATHS_POOR, "poor"))
+            store.create_jobs(jobs(PATHS_POOR // 4, "poor", "gpu", 2.0))
+            for pool in (POOL, "gpu"):
+                rebalance(pool)
+                cycle(pool, 1024)
+        finally:
+            coord.stop()
+    return trace

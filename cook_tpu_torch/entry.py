@@ -250,7 +250,7 @@ class ResidentWorkload:
                                          EST_NEVER)
 
         # running tasks, each on a host; availability = cap - usage
-        rm = rs.run_m
+        rm = rs._run_m
         rm["user"][:R] = rng.integers(0, U, R)
         rm["mem"][:R] = rng.uniform(1, 10, R)
         rm["cpus"][:R] = rng.uniform(1, 4, R)
@@ -291,7 +291,7 @@ class ResidentWorkload:
         n = min(n, len(self.pend_free))
         rows = np.asarray([self.pend_free.pop() for _ in range(n)],
                           np.int64)
-        pm = rs.pend_m
+        pm = rs._pend_m
         pm["user"][rows] = rng.integers(0, self.U, n)
         pm["mem"][rows] = rng.uniform(1, 10, n)
         pm["cpus"][rows] = rng.uniform(0.5, 4, n)
@@ -311,7 +311,7 @@ class ResidentWorkload:
         if len(con):
             slots = np.asarray([self.forb_free.pop() for _ in con])
             pm["forb_slot"][con] = slots
-            rs.forb_m[slots] = (rng.random((len(con), rs.Hcap))
+            rs._forb_rows_m[slots] = (rng.random((len(con), rs.Hcap))
                                 < FORBID_DENSITY)
             rs.mark_forb(slots)
         rs.mark_pend(rows)
@@ -320,7 +320,7 @@ class ResidentWorkload:
         """Fold one cycle's readback into the mirrors and mark the next
         cycle's deltas."""
         rng, rs = self.rng, self.rs
-        pm, rm = rs.pend_m, rs.run_m
+        pm, rm = rs._pend_m, rs._run_m
         # completions first (tasks started this cycle keep running)
         live = np.flatnonzero(rm["valid"])
         done = rng.choice(live, min(self.C, len(live)), replace=False)
@@ -364,9 +364,9 @@ class ResidentWorkload:
         t0 = time.perf_counter()
         bundle = rs.ship(rs.drain())
         t1 = time.perf_counter()
-        out = rs.dispatch(bundle, self.qm, self.qc, self.qn, self.C,
-                          self.now_s, self.C, use_kernel=use_kernel,
-                          sequential=sequential, match_kw=match_kw)
+        out = rs.run_cycle(bundle, self.qm, self.qc, self.qn, self.C,
+                           self.now_s, self.C, use_kernel=use_kernel,
+                           sequential=sequential, match_kw=match_kw)
         mat_idx, mat_host = rs.readback(out)
         t2 = time.perf_counter()
         if cuda:

@@ -52,9 +52,9 @@ def test_batched_cycles_equal_jax_at_headline_shape():
             num_considerable=w.C, sequential=False, num_groups=1,
             dru_mode="default", use_pallas=False, match_kw=match_kw,
             with_bonus=False, with_est=True)
-        tout = rs.dispatch(convert.tensors(bundle, "cpu"), w.qm, w.qc, w.qn,
-                           w.C, w.now_s, w.C, use_kernel=True,
-                           sequential=False, match_kw=match_kw)
+        tout = rs.run_cycle(convert.tensors(bundle, "cpu"), w.qm, w.qc, w.qn,
+                            w.C, w.now_s, w.C, use_kernel=True,
+                            sequential=False, match_kw=match_kw)
         n = int(tout[3])
         assert n == int(jout[3]), f"cycle {cyc}: n_matched"
         for i, name in ((5, "mat_idx"), (6, "mat_host"), (8, "why_code")):

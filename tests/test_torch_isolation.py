@@ -1,6 +1,8 @@
 """Isolation and device rules of the port (cook_tpu_torch):
 
-* a process running the port never imports jax nor any cook_tpu module;
+* a process running the port (the entry points, and a Coordinator with
+  a resident pool that runs cycles and the rebalancer) never imports
+  jax nor any cook_tpu module;
 * no file of the port, nor chip_smoke.py nor bench_torch.py, imports jax
   or cook_tpu, and bench_torch.py runs on the CPU without them;
 * entry points default to CUDA and raise when it is absent;
@@ -42,6 +44,27 @@ assert len(bat_idx) > 0
 fn, args = entry.entry(device="cpu")
 res = fn(*args)
 assert int(res.n_matched) > 0 and len(mat_idx) > 0
+from cook_tpu_torch.backends.base import ClusterRegistry
+from cook_tpu_torch.backends.mock import MockCluster, MockHost
+from cook_tpu_torch.scheduler.coordinator import Coordinator
+from cook_tpu_torch.state.model import Job, JobState
+from cook_tpu_torch.state.store import JobStore
+store = JobStore()
+cluster = MockCluster([MockHost(f"h{i}", mem=100, cpus=8)
+                       for i in range(3)])
+reg = ClusterRegistry()
+reg.register(cluster)
+coord = Coordinator(store, reg, device="cpu")
+coord.enable_resident()
+jobs = [Job(uuid=f"00000000-0000-0000-0000-{i:012d}", user=f"u{i % 2}",
+            command="true", mem=10, cpus=1) for i in range(30)]
+store.create_jobs(jobs)
+assert coord.match_cycle().matched == 24
+cluster.advance(120.0)
+coord.match_cycle()
+coord.rebalance_cycle()
+coord.stop()
+assert sum(j.state == JobState.COMPLETED for j in jobs) == 24
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"
              or n == "cook_tpu" or n.startswith("cook_tpu."))
@@ -100,6 +123,8 @@ BENCH_TOY = {
                  "--C", "256", "--cycles", "3"],
     "sequential": ["--R", "200", "--P", "1000", "--H", "64", "--U", "16",
                    "--C", "128", "--cycles", "3"],
+    "e2e": ["--P0", "1500", "--H", "60", "--U", "12", "--cycles", "3",
+            "--warmup", "1"],
 }
 
 
@@ -124,6 +149,15 @@ def test_bench_torch_runs_on_cpu_without_jax(mode):
                   "capped8192_preempted"):
             assert out[k] is not None, k
         assert out["placed"] > 0 and out["launches_per_sweep"] is None
+    elif mode == "e2e":
+        for k in ("value", "p50_cycle_ms", "p99_cycle_ms",
+                  "matched_per_cycle", "phase_median_ms", "resyncs"):
+            assert out[k] is not None, k
+        assert {"drain_ms", "ship_ms", "dispatch_ms", "readback_ms",
+                "launch_txn_ms", "backend_launch_ms"} <= set(
+                    out["phase_median_ms"])
+        assert out["cycles"] == 3 and out["sequential"]
+        assert out["launches_per_cycle"] is None
     else:
         for k in ("value", "cycle_ms_median", "cycle_ms_iqr",
                   "p50_cycle_ms", "p99_cycle_ms", "p99_method",

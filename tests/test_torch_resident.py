@@ -47,7 +47,7 @@ def test_device_cycle_equals_jax_three_cycles():
     jstate = jax.device_put(tres.state_to_numpy(rs.state))
     # first cycle: more changed rows than one chunk holds
     rows = np.arange(tres.DELTA_CHUNK + 700)
-    rs.pend_m["priority"][rows] = (rs.pend_m["priority"][rows] + 1) % 3
+    rs._pend_m["priority"][rows] = (rs._pend_m["priority"][rows] + 1) % 3
     rs.mark_pend(rows)
     rs.mark_forb(range(tres.FORB_CHUNK + 40))
     qm, qc, qn = (np.asarray(q.numpy()) for q in (w.qm, w.qc, w.qn))
@@ -65,8 +65,8 @@ def test_device_cycle_equals_jax_three_cycles():
             with_bonus=False, with_est=True)
         for kind, arrays in spills:
             tres.SCATTERS[kind](rs.state, *convert.tensors(arrays, "cpu"))
-        tout = rs.dispatch(convert.tensors(bundle, "cpu"), w.qm, w.qc, w.qn,
-                           w.C, w.now_s, w.C, use_kernel=True)
+        tout = rs.run_cycle(convert.tensors(bundle, "cpu"), w.qm, w.qc, w.qn,
+                            w.C, w.now_s, w.C, use_kernel=True)
         for name, r, g in zip(OUT_NAMES, jout, tout):
             np.testing.assert_array_equal(g.numpy(), np.asarray(r),
                                           err_msg=f"cycle {cyc} {name}")
@@ -109,9 +109,9 @@ def test_device_cycle_batched_equals_jax(use_kernel, head):
             num_considerable=w.C, sequential=False, num_groups=1,
             dru_mode="default", use_pallas=False, match_kw=match_kw,
             with_bonus=False, with_est=True)
-        tout = rs.dispatch(convert.tensors(bundle, "cpu"), w.qm, w.qc, w.qn,
-                           w.C, w.now_s, w.C, use_kernel=use_kernel,
-                           sequential=False, match_kw=match_kw)
+        tout = rs.run_cycle(convert.tensors(bundle, "cpu"), w.qm, w.qc, w.qn,
+                            w.C, w.now_s, w.C, use_kernel=use_kernel,
+                            sequential=False, match_kw=match_kw)
         for name, r, g in zip(OUT_NAMES, jout, tout):
             if name == "why_amt":
                 np.testing.assert_allclose(g.numpy(), np.asarray(r),
@@ -186,7 +186,7 @@ def test_state_round_trip_keeps_dtypes():
     w = entry.resident_workload(R=50, P=200, H=64, U=4, C=16, forb_cap=64,
                                device="cpu")
     back = tres.state_to_numpy(w.rs.state)
-    for k, v in w.rs.pend_m.items():
+    for k, v in w.rs._pend_m.items():
         assert back["pend"][k].dtype == v.dtype, k
         np.testing.assert_array_equal(back["pend"][k], v)
     assert back["forb"].dtype == bool and back["forb"].shape == (64, 64)
@@ -200,7 +200,7 @@ def _bonus_state(seed=4):
     P, R, H, U = 256, 128, 64, 6
     rs = tres.ResidentState(P, R, H, forb_cap=32, bonus_cap=16,
                             with_bonus=True, device="cpu")
-    pm, rm, hm = rs.pend_m, rs.run_m, rs.host_m
+    pm, rm, hm = rs._pend_m, rs._run_m, rs.host_m
     n = 200
     pm["user"][:n] = rng.integers(0, U, n)
     pm["mem"][:n] = rng.uniform(1, 10, n)
@@ -221,9 +221,9 @@ def _bonus_state(seed=4):
     hm["cap_cpus"][:] = rng.uniform(8, 32, H)
     hm["mem"][:], hm["cpus"][:] = hm["cap_mem"], hm["cap_cpus"]
     hm["valid"][:], hm["task_slots"][:], hm["ports"][:] = True, 50, 100
-    rs.forb_m[:] = rng.random((32, H)) < 0.2
+    rs._forb_rows_m[:] = rng.random((32, H)) < 0.2
     rs.upload()
-    rs.bonus_m[:] = rng.uniform(0, 0.5, (16, H))
+    rs._bonus_rows_m[:] = rng.uniform(0, 0.5, (16, H))
     rs.mark_bonus(range(16))
     rs.credit(3, mem=2.0, cpus=1.0, slots=1, ports=2)
     return rs
@@ -242,9 +242,9 @@ def test_device_cycle_with_bonus_equals_jax():
         dru_mode="default", use_pallas=False, match_kw=None,
         with_bonus=True, with_est=False)
     fused_match.reset_launches()
-    tout = rs.dispatch(convert.tensors(bundle, "cpu"), torch.from_numpy(q),
-                       torch.from_numpy(q), torch.from_numpy(qn), 48, 0, 64,
-                       use_kernel=True)
+    tout = rs.run_cycle(convert.tensors(bundle, "cpu"), torch.from_numpy(q),
+                        torch.from_numpy(q), torch.from_numpy(qn), 48, 0, 64,
+                        use_kernel=True)
     for name, r, g in zip(OUT_NAMES, jout, tout):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r),
                                       err_msg=name)
