@@ -127,7 +127,8 @@
    rounds as the same run on the port's CPU path (its plain versions):
    E2E_AGREE cycles, and batched more, up to E2E_AGREE_MAX, until one
    ran a dense round; best_host must launch once per dense round there.
-   The first difference fails. Then E2E_CYCLES cycles after E2E_WARMUP,
+   The first difference fails. Then E2E_CYCLES (40, 100 before the
+   server phases came; cut to make room for them) cycles after E2E_WARMUP,
    with bench_e2e's 19 status shards and without its durable log: each
    cycle must launch exact_scan once and, batched, best_host once per
    dense round its match_rounds ran (none sequentially); the segment
@@ -143,7 +144,40 @@
    its DRU head in both, once on the card and once on the CPU path: the
    traces (launches, dense rounds, preemptions, decisions) must be
    equal; exact_scan and best_host must launch and both pools preempt.
-9. Prints timings as JSON: per cycle CUDA events from the delta upload
+9. The scheduler server (rest/server.py `build_scheduler`, as operators
+   run it, at bench_e2e's size): one mock cluster of H = 10,000 hosts
+   (131,072 MB, 32 cpus), the default pool, max_jobs_considered 1,024,
+   the default resident match and pipeline depth (an async consumer),
+   a durable log in a temp dir, no overload ladder (as bench_e2e), served
+   by an ApiServer on a free port. P = 100,000 jobs of U = 500 users
+   (mem U(1,024, 10,240) MB, cpus U(0.5, 4), 2% pinned to one of 50
+   racks the smoke labels the hosts with, seeded) are POSTed to
+   /jobs/bulk over HTTP from 8 client threads, one user's jobs a request
+   (at most 1,000), through the ingest batcher; then the cycle threads
+   start as `main`'s on_leadership starts them and run until 30 resident
+   cycles have launched jobs. exact_scan must launch once a cycle, each
+   cycle launch 1,024 while the backlog lasts, no job launch twice, and
+   every launched job read running or success through GET /jobs/<uuid>.
+   Prints the ingest rate (first POST to last 201) and the host-clock
+   p50 / p99 of the cycles and of the profiler's phases (drain, ship,
+   dispatch, queue_wait; readback, fold, frame, launch_txn, bookkeep,
+   backend_launch). Then the same at max_jobs_considered 8,192 until
+   best_host has launched, best_host once per dense round: the window
+   rounds place the unconstrained jobs (on these identical hosts, all of
+   them until the cluster fills), the constrained ones only the head and
+   the dense rounds. Then a deterministic run of the
+   C = 1,024 server (clocks and uuids pinned, the backlog through
+   CookApi.handle in order, pipeline depth 0, statuses inline, cycles
+   driven by hand) on the card and on the CPU path: SERVER_AGREE cycles
+   must launch the same (job uuid, hostname) pairs.
+10. The operator's path: `python -m cook_tpu_torch.rest.server --port
+   <free> --config <tmp>` as a subprocess on the default device (cuda);
+   10 jobs POSTed over HTTP must read running or success, and SIGTERM
+   must end it. Then the simulator (`cook_tpu_torch.sim.Simulator`,
+   rebalancer thresholds at 0) on generate_trace(n_jobs=5,000,
+   n_users=20, seed=0) x generate_hosts(200), once on the card and once
+   on the CPU path: run_trace_rows() and summary() must be equal.
+11. Prints timings as JSON: per cycle CUDA events from the delta upload
    to the prefix readback, and the host clock around the whole cycle
    (including the workload's own bookkeeping); each kernel alone by CUDA
    events, exact_scan also at its dependency floor (S=1024 with one warp
@@ -218,9 +252,27 @@ E2E_SHAPE = dict(P0=100_000, H=10_000, U=500)
 E2E_AGREE = 4
 E2E_AGREE_MAX = 64
 E2E_READBACK_CYCLES = 13
-E2E_CYCLES = 100
+E2E_CYCLES = 40
 E2E_WARMUP = 5
 E2E_MATCHERS = (("sequential", None), ("batched", C_BATCHED))
+# the server (rest/server.py build_scheduler at bench_e2e's size): the
+# backlog, its users and hosts; requests of at most SERVER_BATCH jobs from
+# SERVER_CLIENTS client threads; resident cycles to run (and the seconds
+# they may take); batched cycles' seconds to wait for a dense round;
+# deterministic cycles held against the CPU path
+SERVER_P, SERVER_H, SERVER_U = 100_000, 10_000, 500
+# a share of the jobs carries a rack constraint (as phase 4's pool
+# constrains 2%), over racks the smoke labels the mock hosts with
+SERVER_CONSTRAINED, SERVER_RACKS = 0.02, 50
+SERVER_BATCH, SERVER_CLIENTS = 1_000, 8
+SERVER_INTERVAL_S = 0.05
+SERVER_CYCLES, SERVER_MAX_S = 30, 240
+SERVER_BATCHED_MAX_S = 120
+SERVER_AGREE = 4
+# the operator's `python -m` boot: jobs posted, seconds allowed to boot
+# and to run them; the simulator's trace
+SERVER_SMOKE_JOBS, SERVER_BOOT_S = 10, 120
+SIM_JOBS, SIM_USERS, SIM_HOSTS = 5000, 20, 200
 
 
 T_START = time.perf_counter()
@@ -1153,6 +1205,509 @@ def paths_phase(dev):
     return out
 
 
+def server_config(log_dir, consider=1024, **sched):
+    """Phase 9's deployment: bench_e2e's cluster as one mock cluster of
+    identical hosts behind `build_scheduler`, the default pool, header
+    auth (one user a request), a durable log in `log_dir`. Without the
+    overload ladder, as bench_e2e's coordinator runs: its pending_jobs
+    watermark (4 x max_jobs_considered) reads the 100,000-job backlog as
+    overload and halves the consider window after three evaluations."""
+    return {"clusters": [{"kind": "mock", "name": "mock",
+                          "hosts": SERVER_H, "host_mem": 131072.0,
+                          "host_cpus": 32.0}],
+            "auth": {"scheme": "header"},
+            "log_path": os.path.join(log_dir, "events.log"),
+            "scheduler": {"max_jobs_considered": consider,
+                          "match_interval_s": SERVER_INTERVAL_S,
+                          "overload_enabled": False, **sched}}
+
+
+def server_requests(n=None, seed=0, first=0):
+    """The seeded backlog as /jobs/bulk bodies: n (P) jobs of U users
+    (mem U(1,024, 10,240) MB, cpus U(0.5, 4), deterministic uuids from
+    `first`; SERVER_CONSTRAINED of them pinned to one rack), each
+    request one user's jobs (the API authenticates one user a request),
+    at most SERVER_BATCH jobs."""
+    import uuid
+    n = SERVER_P if n is None else n
+    rng = np.random.default_rng(seed)
+    users = rng.integers(0, SERVER_U, n)
+    mem = rng.uniform(1024, 10240, n)
+    cpus = rng.uniform(0.5, 4, n)
+    pinned = rng.random(n) < SERVER_CONSTRAINED
+    racks = rng.integers(0, SERVER_RACKS, n)
+    by_user = {}
+    for i in range(n):
+        spec = {"uuid": str(uuid.UUID(int=(1 << 64) + first + i)),
+                "command": "true", "mem": float(mem[i]),
+                "cpus": float(cpus[i])}
+        if pinned[i]:
+            spec["constraints"] = [["rack", "EQUALS", f"r{racks[i]}"]]
+        by_user.setdefault(int(users[i]), []).append(spec)
+    return [(f"u{u}", {"jobs": jobs[k:k + SERVER_BATCH]})
+            for u, jobs in sorted(by_user.items())
+            for k in range(0, len(jobs), SERVER_BATCH)]
+
+
+def post_http(url, reqs, clients=SERVER_CLIENTS, path="/jobs/bulk"):
+    """POST every request from `clients` threads; seconds from the first
+    POST to the last 201."""
+    import threading
+    import urllib.request
+    bodies = [(u, json.dumps(b).encode()) for u, b in reqs]
+    errors = []
+
+    def worker(k):
+        for user, body in bodies[k::clients]:
+            r = urllib.request.Request(
+                url + path, data=body, method="POST",
+                headers={"Content-Type": "application/json",
+                         "x-cook-user": user})
+            try:
+                with urllib.request.urlopen(r, timeout=300) as f:
+                    if f.status != 201:
+                        errors.append(f.status)
+            except Exception as e:
+                errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    dt = time.perf_counter() - t0
+    if errors:
+        fail(f"server ingest: {len(errors)} requests failed: {errors[:3]}")
+    return dt
+
+
+def label_racks(coord):
+    """Host attributes the config has no field for: each mock host in
+    one of SERVER_RACKS racks, before the first cycle reads them."""
+    for cluster in coord.clusters.all():
+        for i, host in enumerate(sorted(cluster.hosts)):
+            cluster.hosts[host].attributes["rack"] = f"r{i % SERVER_RACKS}"
+
+
+def start_cycles(coord):
+    """The cycle threads as rest/server.py main's on_leadership starts
+    them: backends initialized, the coordinator's timer threads, and the
+    real-time tick that advances mock clocks a second a second."""
+    import threading
+    for cluster in coord.clusters.all():
+        cluster.initialize()
+    coord.run()
+
+    def tick():
+        while not coord._stop.wait(1.0):
+            for cluster in coord.clusters.all():
+                if hasattr(cluster, "advance"):
+                    cluster.advance(1.0)
+
+    threading.Thread(target=tick, daemon=True).start()
+
+
+def _pct(xs):
+    return ({"p50": float(np.percentile(xs, 50)),
+             "p99": float(np.percentile(xs, 99)), "n": len(xs)}
+            if xs else None)
+
+
+def run_server(dev, consider, until, max_s, check=None):
+    """Build phase 9's server at `consider`, take the backlog over HTTP
+    (an ApiServer, the ingest batcher), start the cycle threads and run
+    until `until(entries)` holds for the profiler's committed cycle
+    records (fails after `max_s` seconds of cycles), then stop the
+    cycles and call `check(store, entries, url)` while the server still
+    answers.
+    Returns the run's records of the default pool, the ingest seconds,
+    the launches counted from the cycles' start, the dense rounds and
+    the overload ladder's level."""
+    import shutil
+    import tempfile
+    from cook_tpu_torch import obs
+    from cook_tpu_torch.ops import fused_match as fm
+    from cook_tpu_torch.ops import match as match_ops
+    from cook_tpu_torch.rest.server import (ApiServer, apply_gc_discipline,
+                                            build_scheduler)
+    tmp = tempfile.mkdtemp(prefix="cook_smoke_server_")
+    reqs = server_requests()
+    store, coord, api = build_scheduler(server_config(tmp, consider),
+                                        device=dev)
+    label_racks(coord)
+    server = ApiServer(api).start()
+    entries = []
+    stopped = False
+    try:
+        ingest_s = post_http(server.url, reqs)
+        if len(store.jobs) != SERVER_P:
+            fail(f"server ingest: {len(store.jobs)} jobs in the store")
+        apply_gc_discipline()
+        obs.profiler.add_listener(entries.append)
+        fm.reset_launches()
+        d0 = match_ops.ROUNDS["dense"]
+        start_cycles(coord)
+        t0 = time.perf_counter()
+        while not until(list(entries)):
+            if time.perf_counter() - t0 > max_s:
+                fail(f"server at C={consider}: not done after {max_s} s "
+                     f"({len(entries)} cycle records)")
+            time.sleep(0.05)
+        coord.stop()
+        stopped = True
+        launches = dict(fm.LAUNCHES)
+        dense = match_ops.ROUNDS["dense"] - d0
+        obs.profiler.remove_listener(entries.append)
+        entries = [e for e in entries if e["pool"] == "default"]
+        if check is not None:
+            check(store, entries, server.url)
+        return {"entries": entries, "ingest_s": ingest_s,
+                "launches": launches, "dense_rounds": dense,
+                "overload_level":
+                    coord.overload.level if coord.overload else None}
+    finally:
+        server.stop()
+        if api.ingest is not None:
+            api.ingest.stop()
+        if not stopped:
+            coord.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def get_states(url, jobs, ok, clients=SERVER_CLIENTS):
+    """GET /jobs/<uuid> for each (uuid, user) from `clients` threads;
+    the (uuid, state) pairs whose state is not in `ok`."""
+    import threading
+    import urllib.request
+    bad = []
+
+    def worker(k):
+        for u, user in jobs[k::clients]:
+            r = urllib.request.Request(f"{url}/jobs/{u}",
+                                       headers={"x-cook-user": user})
+            try:
+                with urllib.request.urlopen(r, timeout=60) as f:
+                    state = json.loads(f.read())["state"]
+            except Exception as e:
+                state = repr(e)
+            if state not in ok:
+                bad.append((u, state))
+
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return bad
+
+
+def _kinds(entries, kind):
+    return [e for e in entries if e["kind"] == kind]
+
+
+def server_agreement(device, cycles):
+    """Phase 9's server, deterministic: clocks and uuids pinned, the
+    backlog taken through CookApi.handle in order, pipeline depth 0 and
+    statuses applied inline, each cycle driven by hand and drained.
+    Returns the backend launches, (job uuid, hostname), of each cycle."""
+    import shutil
+    import tempfile
+    from cook_tpu_torch import e2e
+    from cook_tpu_torch.rest.server import build_scheduler
+    tmp = tempfile.mkdtemp(prefix="cook_smoke_agree_")
+    per = []
+    with e2e.pinned_clocks():
+        store, coord, api = build_scheduler(
+            server_config(tmp, pipeline_depth=0, status_shards=0),
+            device=device)
+        label_racks(coord)
+        try:
+            for user, body in server_requests():
+                r = api.handle("POST", "/jobs/bulk", {}, body,
+                               {"x-cook-user": user})
+                if r.status != 201:
+                    fail(f"server agreement ingest: {r.status}")
+            launched = []
+            for cluster in coord.clusters.all():
+                launch = cluster.launch_tasks
+
+                def record(pool, specs, _launch=launch):
+                    launched.extend((s.job_uuid, s.hostname) for s in specs)
+                    return _launch(pool, specs)
+
+                cluster.launch_tasks = record
+            for _ in range(cycles):
+                n0 = len(launched)
+                coord.match_cycle("default")
+                coord.drain_resident("default")
+                per.append(launched[n0:])
+        finally:
+            if api.ingest is not None:
+                api.ingest.stop()
+            coord.stop()
+            shutil.rmtree(tmp, ignore_errors=True)
+    return per
+
+
+def server_phase(dev):
+    """9: the server at bench_e2e's size (see the module docstring).
+    Returns (stats, launches of the server's cycles at 1,024 and 8,192
+    summed)."""
+    import torch
+    card = card_line()
+
+    # C = 1,024: the sequential walk, exact_scan once a cycle
+    def matched_enough(entries):
+        return sum(1 for e in _kinds(entries, "consume")
+                   if e.get("attrs", {}).get("matched")) >= SERVER_CYCLES
+
+    read = {}
+
+    def launched_jobs_read_running(store, entries, url):
+        # no job launched twice, and every launched job reads running
+        # or success through GET /jobs/<uuid>
+        done = sum(e["attrs"]["matched"] for e in _kinds(entries,
+                                                          "consume"))
+        launched = [(j.uuid, j.user) for j in store.jobs.values()
+                    for _ in j.instances]
+        if len(launched) != done or len(set(launched)) != len(launched):
+            fail(f"server: {len(launched)} instances for {done} launches")
+        bad = get_states(url, launched, ("running", "success"))
+        if bad:
+            fail(f"server: launched jobs read {bad[:3]}")
+        read["jobs_read"] = len(launched)
+
+    r = run_server(dev, 1024, matched_enough, SERVER_MAX_S,
+                   check=launched_jobs_read_running)
+    matches, consumes = _kinds(r["entries"], "match"), \
+        _kinds(r["entries"], "consume")
+    seq_launches = r["launches"]
+    if seq_launches["exact_scan"] != len(matches):
+        fail(f"server: exact_scan launched {seq_launches['exact_scan']} "
+             f"times in {len(matches)} cycles")
+    if seq_launches["best_host"] or r["dense_rounds"]:
+        fail("server at C=1024: a dense round ran")
+    matched = [e["attrs"]["matched"] for e in consumes]
+    done = 0
+    for k, m in enumerate(matched):
+        if SERVER_P - done >= 1024 and m != 1024:
+            fail(f"server: consumed cycle {k} launched {m} of 1024 "
+                 f"(overload level {r['overload_level']})")
+        done += m
+
+    def phase_ms(es, names):
+        out = {}
+        for n in names:
+            xs = [p["ms"] for e in es for p in e["phases"]
+                  if p["name"] == n]
+            out[n] = _pct(xs)
+        return out
+
+    resyncs = [p["ms"] for e in matches for p in e["phases"]
+               if p["name"] == "resync"]
+    stats = {
+        "C": 1024, "P": SERVER_P, "H": SERVER_H, "U": SERVER_U,
+        "requests": len(server_requests()), "clients": SERVER_CLIENTS,
+        "ingest_s": r["ingest_s"],
+        "ingest_jobs_per_s": SERVER_P / r["ingest_s"],
+        "cycles": len(matches), "consumed": len(consumes),
+        "matched_per_cycle": matched,
+        "launched": done, **read,
+        "exact_scan_launches": seq_launches["exact_scan"],
+        "match_cycle_ms": _pct([e["wall_ms"] for e in matches]),
+        "consume_ms": _pct([e["wall_ms"] for e in consumes]),
+        "match_cycle_ms_after_first": _pct(
+            [e["wall_ms"] for e in matches[1:]]),
+        "resync_ms": resyncs,
+        "phase_ms": {**phase_ms(matches, ("drain", "ship", "dispatch",
+                                          "queue_wait")),
+                     **phase_ms(consumes, ("readback", "fold", "frame",
+                                           "launch_txn", "bookkeep",
+                                           "backend_launch"))},
+        "overload_level": r["overload_level"],
+        "card": card,
+    }
+    del r
+
+    # C = 8,192: match_rounds, best_host once per dense round
+    def dense_ran(entries):
+        from cook_tpu_torch.ops import fused_match as fm
+        return fm.LAUNCHES["best_host"] >= 1
+
+    r = run_server(dev, C_BATCHED, dense_ran, SERVER_BATCHED_MAX_S)
+    matches = _kinds(r["entries"], "match")
+    b_launches = r["launches"]
+    if b_launches["exact_scan"] != len(matches):
+        fail(f"server at C=8192: exact_scan launched "
+             f"{b_launches['exact_scan']} times in {len(matches)} cycles")
+    if b_launches["best_host"] != r["dense_rounds"] or \
+            not r["dense_rounds"]:
+        fail(f"server at C=8192: best_host launched "
+             f"{b_launches['best_host']} times in {r['dense_rounds']} "
+             f"dense rounds")
+    stats["batched"] = {
+        "C": C_BATCHED, "ingest_s": r["ingest_s"],
+        "ingest_jobs_per_s": SERVER_P / r["ingest_s"],
+        "cycles": len(matches), "dense_rounds": r["dense_rounds"],
+        "matched_per_cycle": [e["attrs"]["matched"] for e in
+                              _kinds(r["entries"], "consume")],
+        "match_cycle_ms": _pct([e["wall_ms"] for e in matches]),
+        "kernel_launches": {k: v for k, v in b_launches.items() if v}}
+    del r
+    torch.cuda.synchronize()
+
+    # the deterministic run on the card against the CPU path
+    t0 = time.perf_counter()
+    got = server_agreement(dev, SERVER_AGREE)
+    want = server_agreement("cpu", SERVER_AGREE)
+    for c, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            fail(f"server agreement cycle {c}: "
+                 + _first_launch_difference(g, w))
+    if not sum(len(g) for g in got):
+        fail("server agreement: nothing launched")
+    stats["agreement"] = {"cycles": SERVER_AGREE,
+                          "launched_per_cycle": [len(g) for g in got],
+                          "s": time.perf_counter() - t0}
+    launches = {k: seq_launches[k] + b_launches[k] for k in seq_launches}
+    stats["kernel_launches"] = {k: v for k, v in launches.items() if v}
+    print(json.dumps({"server": stats}), flush=True)
+    return stats, launches
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def operator_phase(dev):
+    """10: `python -m cook_tpu_torch.rest.server` as operators start it,
+    and the simulator on the card against the CPU path (see the module
+    docstring). Returns (stats, the card simulator's launches)."""
+    import shutil
+    import signal
+    import tempfile
+    import urllib.request
+    import uuid
+    from cook_tpu_torch import e2e
+    from cook_tpu_torch.ops import fused_match as fm
+    from cook_tpu_torch.sim import (SimConfig, Simulator, parse_hosts,
+                                    parse_trace)
+    from cook_tpu_torch.sim.gen import generate_hosts, generate_trace
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="cook_smoke_boot_")
+    port = _free_port()
+    cfg = os.path.join(tmp, "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump({"log_path": os.path.join(tmp, "events.log")}, f)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cook_tpu_torch.rest.server", "--port",
+         str(port), "--config", cfg], cwd=tmp, env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    url = f"http://127.0.0.1:{port}"
+    boot = {}
+    try:
+        while True:
+            try:
+                urllib.request.urlopen(url + "/info", timeout=2).close()
+                break
+            except OSError:
+                if proc.poll() is not None:
+                    fail(f"python -m server exited {proc.returncode}: "
+                         f"{proc.stderr.read()[-2000:]}")
+                if time.perf_counter() - t0 > SERVER_BOOT_S:
+                    fail("python -m server never listened")
+                time.sleep(0.2)
+        boot["listen_s"] = time.perf_counter() - t0
+        uuids = [str(uuid.UUID(int=(2 << 64) + i))
+                 for i in range(SERVER_SMOKE_JOBS)]
+        t1 = time.perf_counter()
+        for u in uuids:
+            req = urllib.request.Request(
+                url + "/jobs", method="POST",
+                data=json.dumps({"jobs": [{"uuid": u, "command": "true",
+                                           "mem": 512, "cpus": 1}]}
+                                ).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                if r.status != 201:
+                    fail(f"python -m server: POST /jobs {r.status}")
+        states = {}
+        while time.perf_counter() - t1 < SERVER_BOOT_S:
+            for u in uuids:
+                with urllib.request.urlopen(f"{url}/jobs/{u}",
+                                            timeout=10) as r:
+                    states[u] = json.loads(r.read())["state"]
+            if all(s in ("running", "success") for s in states.values()):
+                break
+            time.sleep(0.2)
+        else:
+            fail(f"python -m server: job states {sorted(states.values())}")
+        boot["jobs_running_s"] = time.perf_counter() - t1
+        boot["states"] = sorted(states.values())
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail("python -m server did not exit on SIGTERM")
+        shutil.rmtree(tmp, ignore_errors=True)
+    boot["exit_code"] = proc.returncode
+
+    def simulate(device):
+        cfg = SimConfig()
+        cfg.scheduler.rebalancer.safe_dru_threshold = 0.0
+        cfg.scheduler.rebalancer.min_dru_diff = 0.0
+        sim = Simulator(
+            parse_trace(generate_trace(n_jobs=SIM_JOBS, n_users=SIM_USERS,
+                                       seed=0)),
+            parse_hosts(generate_hosts(SIM_HOSTS)), cfg, device=device)
+        t = time.perf_counter()
+        with e2e.pinned_clocks():
+            summary = sim.run()
+            rows = sim.run_trace_rows()
+        return rows, summary, time.perf_counter() - t
+
+    fm.reset_launches()
+    rows, summary, card_s = simulate(dev)
+    sim_launches = dict(fm.LAUNCHES)
+    cpu_rows, cpu_summary, cpu_s = simulate("cpu")
+    if summary != cpu_summary:
+        fail(f"simulator: summary on the card {summary} != CPU path "
+             f"{cpu_summary}")
+    if rows != cpu_rows:
+        k = next(i for i, (a, b) in enumerate(zip(rows, cpu_rows))
+                 if a != b) if len(rows) == len(cpu_rows) else "length"
+        fail(f"simulator: run trace differs from the CPU path at row {k}")
+    if summary["completed"] != SIM_JOBS or not sim_launches["exact_scan"]:
+        fail(f"simulator: {summary['completed']} completed, launches "
+             f"{sim_launches}")
+    stats = {"python_m_server": boot,
+             "simulator": {"jobs": SIM_JOBS, "users": SIM_USERS,
+                           "hosts": SIM_HOSTS, "cycles": summary["cycles"],
+                           "completed": summary["completed"],
+                           "preemptions": summary["preemptions"],
+                           "rows": len(rows), "card_s": card_s,
+                           "cpu_s": cpu_s,
+                           "kernel_launches": {k: v for k, v in
+                                               sim_launches.items() if v}}}
+    print(json.dumps(stats), flush=True)
+    return stats, sim_launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1529,6 +2084,12 @@ def main():
     # ---- 8. the coordinator's other device paths, card against CPU ------
     paths_out = paths_phase(dev)
     mark("paths")
+    # ---- 9. the scheduler server at bench_e2e's size ------------------------
+    server_out, server_launches = server_phase(dev)
+    mark("server")
+    # ---- 10. python -m server, and the simulator card against CPU ----------
+    operator_out, sim_launches = operator_phase(dev)
+    mark("operator")
 
     def cycle_stats(phase, host, match):
         return {
@@ -1590,6 +2151,8 @@ def main():
         "rebalance": reb_out,
         "e2e": e2e_out,
         "coordinator_paths": paths_out,
+        "server": server_out,
+        "operator": operator_out,
         "ordered_scatter_sorted_rebalance_usage_ms": rs_ms,
         "ordered_scatter_sorted_plain_ms": rs_plain_ms,
         "ordered_scatter_sorted_bound_ms": rs_bound[0],
@@ -1607,7 +2170,8 @@ def main():
     by_path = {k: {"sequential": seq_launches[k], "batched": b_launches[k],
                    "rebalance": reb_launches[k],
                    "e2e_sequential": e2e_launches["sequential"][k],
-                   "e2e_batched": e2e_launches["batched"][k]}
+                   "e2e_batched": e2e_launches["batched"][k],
+                   "server": server_launches[k], "sim": sim_launches[k]}
                for k in seq_launches}
 
     def entry(name, route, source, replaces, err, ms, plain, bnd, lib,

@@ -13,4 +13,6 @@ when CUDA is absent unless the caller asked for "cpu".
 """
 from cook_tpu_torch.device import resolve_device
 
+__version__ = "0.1.0"
+
 __all__ = ["resolve_device"]

@@ -37,6 +37,9 @@ import numpy as np
 
 from cook_tpu_torch.backends.base import ClusterRegistry
 from cook_tpu_torch.backends.mock import MockCluster, MockHost
+# the server's, called at leadership takeover and by bench_e2e after
+# seeding; re-exported for bench_torch.py and chip_smoke.py
+from cook_tpu_torch.rest.server import apply_gc_discipline  # noqa: F401
 from cook_tpu_torch.scheduler.coordinator import Coordinator, SchedulerConfig
 from cook_tpu_torch.state import model
 from cook_tpu_torch.state.model import Job
@@ -56,17 +59,6 @@ RETENTION_S = 120.0
 PHASES = ("drain_ms", "ship_ms", "dispatch_ms", "readback_ms",
           "consume_fold_ms", "launch_loop_ms", "consume_frame_ms",
           "launch_txn_ms", "consume_bookkeep_ms", "backend_launch_ms")
-
-
-def apply_gc_discipline() -> None:
-    """Move the store's long-lived object graph out of the cyclic
-    collector's reach (a copy of cook_tpu/rest/server.py:161, which the
-    server calls at leadership takeover and bench_e2e after seeding): at
-    100k jobs every gen-2 sweep would walk ~10^6 live objects inside a
-    cycle. Once armed, the coordinator re-collects and re-freezes
-    between match cycles (Coordinator._maybe_refreeze)."""
-    gc.collect()
-    gc.freeze()
 
 
 @contextlib.contextmanager

@@ -1,0 +1,1 @@
+"""Scheduling core: coordinator, constraints, tensorize, unscheduled."""

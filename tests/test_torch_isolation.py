@@ -1,8 +1,9 @@
 """Isolation and device rules of the port (cook_tpu_torch):
 
-* a process running the port (the entry points, and a Coordinator with
-  a resident pool that runs cycles and the rebalancer) never imports
-  jax nor any cook_tpu module;
+* a process running the port (the entry points, a Coordinator with a
+  resident pool that runs cycles and the rebalancer, the server built by
+  `rest.server.build_scheduler` taking a job through its API, and the
+  simulator) never imports jax nor any cook_tpu module;
 * no file of the port, nor chip_smoke.py nor bench_torch.py, imports jax
   or cook_tpu, and bench_torch.py runs on the CPU without them;
 * entry points default to CUDA and raise when it is absent;
@@ -65,6 +66,25 @@ coord.match_cycle()
 coord.rebalance_cycle()
 coord.stop()
 assert sum(j.state == JobState.COMPLETED for j in jobs) == 24
+from cook_tpu_torch.rest.server import build_scheduler
+from cook_tpu_torch.sim import SimConfig, Simulator, parse_hosts, parse_trace
+from cook_tpu_torch.sim.gen import generate_hosts, generate_trace
+store, coord, api = build_scheduler(
+    {"clusters": [{"kind": "mock", "hosts": 3}],
+     "scheduler": {"pipeline_depth": 0}}, device="cpu")
+resp = api.handle("POST", "/jobs", {}, {"jobs": [
+    {"uuid": "00000000-0000-0000-0001-000000000000", "command": "true",
+     "mem": 10, "cpus": 1}]}, {})
+assert resp.status == 201, resp.body
+coord.match_cycle("default")
+coord.drain_resident("default")
+coord.stop()
+api.ingest.stop()
+assert len(store.running_instances("default")) == 1
+sim = Simulator(parse_trace(generate_trace(n_jobs=20, n_users=2, seed=0)),
+                parse_hosts(generate_hosts(n_hosts=3)),
+                SimConfig(cycle_step_ms=10_000), device="cpu")
+assert sim.run()["completed"] == 20
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"
              or n == "cook_tpu" or n.startswith("cook_tpu."))
