@@ -14,6 +14,13 @@ its cycle and rebalance entries on one NVIDIA GPU.
                                         tasks, 64 decisions, 2,000 hosts,
                                         500 users, exact and with
                                         candidate_cap=8192
+    python3 bench_torch.py pools        bench.py::bench_pools (BASELINE
+                                        config 3): 8 pools x (R=1,250,
+                                        P=12,500, H=1,250, U=100),
+                                        C=1,024 considered a pool, the
+                                        batched matcher, through
+                                        parallel.pools' pool-sharded cycle
+                                        on a one-card mesh, totals psum'd
     python3 bench_torch.py e2e          bench.py::bench_e2e: the
                                         production match path end to end,
                                         Coordinator.match_cycle over a
@@ -129,6 +136,20 @@ def cycle_setup(R, P, H, U, dev, seed=0):
         t(np.full(U, 1e9), f32),
     )
     return args
+
+
+def pools_setup(n_pools, R, P, H, U, dev):
+    """bench.py::bench_pools' arguments: `cycle_setup` of seeds
+    0..n_pools-1 stacked on a leading pools axis, on `dev`."""
+    import torch
+    from cook_tpu_torch.ops import match as match_ops
+
+    parts = [cycle_setup(R, P, H, U, dev, seed=s) for s in range(n_pools)]
+    return tuple(
+        None if col[0] is None else
+        match_ops.Hosts(*(torch.stack(f) for f in zip(*col)))
+        if isinstance(col[0], match_ops.Hosts) else torch.stack(col)
+        for col in zip(*parts))
 
 
 def audit_head_window(res, args, window=AUDIT_WINDOW) -> int:
@@ -336,6 +357,73 @@ def bench_cycle(R=10_000, P=100_000, H=10_000, U=500, C=8_192,
     }), flush=True)
 
 
+def bench_pools(n_pools=8, R=1_250, P=12_500, H=1_250, U=100, C=1_024,
+                cycles=30, device="cuda"):
+    """Multi-pool fair-share (BASELINE config 3, bench.py::bench_pools):
+    n_pools pools of bench.py's seeded `_cycle_setup` (seeds 0..n-1,
+    constraint-free) stacked on a pools axis, one pool-sharded cycle
+    (parallel.pools) over a one-device mesh a call, matched read back
+    from the psum'd total. 8 x 12,500 = the headline's 100k pending."""
+    import torch
+    from cook_tpu_torch.device import resolve_device
+    from cook_tpu_torch.parallel import pools as pool_par
+
+    dev = resolve_device(device)
+    build_s = _prepare(dev)
+    t0 = time.perf_counter()
+    args = pools_setup(n_pools, R, P, H, U, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    runner = pool_par.pool_sharded_cycle(
+        pool_par.make_pool_mesh(devices=[dev]), num_considerable=C,
+        sequential=False)
+
+    def one_cycle():
+        return int(runner(args).stats.total_matched)
+
+    t0 = time.perf_counter()
+    one_cycle()
+    first_s = time.perf_counter() - t0
+    one_cycle()
+    host, event, matched = time_calls(one_cycle, cycles, dev)
+    hs, es = stats(host), stats(event)
+    dps = matched / (hs["median"] / 1e3)
+    prof = device_profile(one_cycle, dev, n=1)
+    print(json.dumps({
+        "metric": f"multi-pool decisions/sec, {n_pools} pools x "
+                  f"{_count(P)} pending, psum aggregates",
+        "value": dps,
+        "unit": "decisions/sec",
+        "vs_baseline": dps / 1000.0,
+        "value_method": f"matched / median host-clock cycle ms over "
+                        f"{cycles} cycles (the call to the readback of the "
+                        "psum'd total matched; inputs resident on the "
+                        "device)",
+        "cycle_ms_median": hs["median"],
+        "cycle_ms_iqr": hs["iqr"],
+        "p50_cycle_ms": hs["p50"],
+        "p99_cycle_ms": hs["p99"],
+        "mean_cycle_ms": hs["mean"],
+        "event_ms_p50": es.get("p50"),
+        "event_ms_p99": es.get("p99"),
+        "event_method": (f"CUDA events on the stream around the same "
+                         f"{cycles} spans" if event is not None
+                         else "not measured: CPU run"),
+        "device_busy_ms_per_cycle": prof["device_busy_ms"],
+        "device_idle_share": prof["device_idle_share"],
+        "launches_per_cycle": prof["launches"],
+        "port_kernel_launches_per_cycle": prof.get("port_kernel_launches"),
+        "host_syncs_per_cycle": prof["host_syncs"],
+        "host_sync_sources": prof.get("host_sync_sources"),
+        "matched_per_cycle": matched,
+        "shape": {"n_pools": n_pools, "R": R, "P": P, "H": H, "U": U,
+                  "C": C, "sequential": False, "mesh_devices": 1},
+        "build_s": build_s, "setup_s": setup_s, "first_call_s": first_s,
+        **device_fields(dev),
+    }), flush=True)
+
+
 def bench_rebalance(T0=50_000, P=64, H=2_000, U=500, sweeps=7,
                     device="cuda"):
     """The preemption sweep over 50k running tasks (BASELINE config 4,
@@ -478,6 +566,7 @@ MODES = {
     "sequential": dict(R=10_000, P=100_000, H=10_000, U=500, C=1_024),
     "small": dict(R=1_000, P=10_000, H=1_000, U=100, C=2_048),
     "rebalance": dict(T0=50_000, P=64, H=2_000, U=500),
+    "pools": dict(R=1_250, P=12_500, H=1_250, U=100, C=1_024),
     "e2e": dict(P0=100_000, H=10_000, U=500),
 }
 
@@ -491,7 +580,7 @@ def main(argv=None):
     for k in ("R", "P", "H", "U", "C", "T0", "P0"):
         ap.add_argument(f"--{k}", type=int, default=None)
     ap.add_argument("--cycles", type=int, default=None,
-                    help="timed cycles (default 120; e2e 560)")
+                    help="timed cycles (default 120; pools 30; e2e 560)")
     ap.add_argument("--warmup", type=int, default=15,
                     help="e2e warm-up cycles")
     ap.add_argument("--consider", type=int, default=None,
@@ -509,6 +598,8 @@ def main(argv=None):
         sys.path.insert(0, here)
     if a.mode == "rebalance":
         bench_rebalance(**shape, sweeps=a.sweeps, device=a.device)
+    elif a.mode == "pools":
+        bench_pools(**shape, cycles=a.cycles or 30, device=a.device)
     elif a.mode == "e2e":
         bench_e2e(**shape, cycles=a.cycles or 560, warmup=a.warmup,
                   consider=a.consider, pipeline_depth=a.pipeline_depth,

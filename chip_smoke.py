@@ -127,8 +127,9 @@
    rounds as the same run on the port's CPU path (its plain versions):
    E2E_AGREE cycles, and batched more, up to E2E_AGREE_MAX, until one
    ran a dense round; best_host must launch once per dense round there.
-   The first difference fails. Then E2E_CYCLES (40, 100 before the
-   server phases came; cut to make room for them) cycles after E2E_WARMUP,
+   The first difference fails. Then E2E_CYCLES (30; 100 before the
+   server phases came, 40 before the mesh phase; cut to make room for
+   them) cycles after E2E_WARMUP,
    with bench_e2e's 19 status shards and without its durable log: each
    cycle must launch exact_scan once and, batched, best_host once per
    dense round its match_rounds ran (none sequentially); the segment
@@ -177,7 +178,35 @@
    rebalancer thresholds at 0) on generate_trace(n_jobs=5,000,
    n_users=20, seed=0) x generate_hosts(200), once on the card and once
    on the CPU path: run_trace_rows() and summary() must be equal.
-11. Prints timings as JSON: per cycle CUDA events from the delta upload
+11. The multi-device paths (cook_tpu_torch/parallel/) on PAR_SHARDS = 4
+   shards of the one card (a mesh that lists cuda:0 four times; copies
+   between shards are then no-ops, so no cross-device ordering is
+   exercised), each through the kernels:
+   - the host-sharded scan (parallel.sharded_match) at C = 1,024 jobs x
+     H = 10,000 hosts (2,500 a shard): without groups, job_host equal to
+     match_scan's (one exact_scan launch) and every lane bit-equal; with
+     4 unique groups, 10% forbidden pairs and a U(0, 0.5) bonus, equal
+     to match_scan's plain walk (no kernel launches) and no group
+     sharing a host;
+   - the pool-sharded cycle (parallel.pools) at bench.py::bench_pools'
+     shape, 8 pools x (R = 1,250, P = 12,500, H = 1,250, U = 100, C =
+     1,024, match_rounds): every CycleResult field equal on one shard
+     and on four, equal to each pool's own rank_and_match and, for pool
+     0, to the CPU path; the psum'd totals equal the counts; exact_scan
+     once a pool, best_host once a dense round; the federated 2 x 2
+     cycle over the same pools equal too, its per-slice split right;
+   - a resident pool sharded over the four shards through the
+     Coordinator at bench_e2e's workload (P0 = 100,000, H = 10,000, U =
+     500, C = 1,024): PAR_RESIDENT_CYCLES deterministic cycles launching
+     what the one-device pool launches, cycle by cycle, with no
+     exact_scan (the sharded scan replaces it), each shard's host lanes
+     and mask rows on its own device;
+   - dryrun_multichip(4) on the four shards, and, where more than one
+     card is visible, the scan and the pool-sharded cycle over all of
+     them held against the above.
+   Prints each path's host-clock and CUDA-event ms, and launches and
+   host syncs a call or cycle.
+12. Prints timings as JSON: per cycle CUDA events from the delta upload
    to the prefix readback, and the host clock around the whole cycle
    (including the workload's own bookkeeping); each kernel alone by CUDA
    events, exact_scan also at its dependency floor (S=1024 with one warp
@@ -252,7 +281,7 @@ E2E_SHAPE = dict(P0=100_000, H=10_000, U=500)
 E2E_AGREE = 4
 E2E_AGREE_MAX = 64
 E2E_READBACK_CYCLES = 13
-E2E_CYCLES = 40
+E2E_CYCLES = 30
 E2E_WARMUP = 5
 E2E_MATCHERS = (("sequential", None), ("batched", C_BATCHED))
 # the server (rest/server.py build_scheduler at bench_e2e's size): the
@@ -273,6 +302,15 @@ SERVER_AGREE = 4
 # and to run them; the simulator's trace
 SERVER_SMOKE_JOBS, SERVER_BOOT_S = 10, 120
 SIM_JOBS, SIM_USERS, SIM_HOSTS = 5000, 20, 200
+# the multi-device paths on shards of one card: the shards; the
+# host-sharded scan's jobs x hosts (the sequential cell's C and H) and
+# its groups; bench.py::bench_pools' pools; sharded resident cycles
+# (bench_e2e's workload); timed calls of each
+PAR_SHARDS = 4
+PAR_SCAN_C, PAR_SCAN_H, PAR_GROUPS = 1024, 10_000, 4
+PAR_POOLS = dict(n_pools=8, R=1_250, P=12_500, H=1_250, U=100, C=1_024)
+PAR_RESIDENT_CYCLES = 4
+PAR_TIMED = 3
 
 
 T_START = time.perf_counter()
@@ -1707,6 +1745,347 @@ def operator_phase(dev):
     print(json.dumps(stats), flush=True)
     return stats, sim_launches
 
+def par_scan_problem(rng, C, H, dev, groups=1, forb_pairs=0.0,
+                     bonus=False):
+    """C jobs x H hosts for the host-sharded scan: the resident cells'
+    host and job mix (U(64, 256) GB x U(16, 64) cpus hosts, 5% gpu, each
+    20-100% free; U(1, 10) GB x U(0.5, 4) cpu jobs, 1% gpu). Without
+    groups 2% of the jobs forbid 5% of the hosts; with `groups`, jobs in
+    one of them (unique placement) or none, `forb_pairs` of all pairs
+    forbidden, and a U(0, 0.5) bonus when asked."""
+    import torch
+    from cook_tpu_torch.ops import match as match_ops
+
+    gpu = rng.random(H) < 0.05
+    cap_mem = rng.uniform(64, 256, H).astype(np.float32)
+    cap_cpus = rng.uniform(16, 64, H).astype(np.float32)
+    cap_gpus = np.where(gpu, rng.choice([4.0, 8.0], H), 0.0).astype(
+        np.float32)
+    free = rng.uniform(0.2, 1.0, H).astype(np.float32)
+    hosts = match_ops.make_hosts(
+        mem=cap_mem * free, cpus=cap_cpus * free, gpus=cap_gpus,
+        cap_mem=cap_mem, cap_cpus=cap_cpus, cap_gpus=cap_gpus, device=dev)
+    group = (rng.integers(-1, groups, C).astype(np.int32) if groups > 1
+             else np.full(C, -1, np.int32))
+    jobs = match_ops.make_jobs(
+        mem=rng.uniform(1, 10, C).astype(np.float32),
+        cpus=rng.uniform(0.5, 4, C).astype(np.float32),
+        gpus=np.where(rng.random(C) < 0.01, 1.0, 0.0).astype(np.float32),
+        group=group, unique_group=group >= 0, device=dev)
+    if groups > 1:
+        forb = rng.random((C, H)) < forb_pairs
+    else:
+        forb = (rng.random(C) < 0.02)[:, None] & (rng.random((C, H)) < 0.05)
+    b = (torch.from_numpy(rng.uniform(0, 0.5, (C, H)).astype(np.float32))
+         .to(dev) if bonus else None)
+    return jobs, hosts, torch.from_numpy(forb).to(dev), b
+
+
+def check_sharded_scan(got, want, label):
+    """A host-sharded scan's result equal to the one-device match_scan's:
+    job_host equal, every lane bit-equal once the shards are joined."""
+    import torch
+    if not torch.equal(got.job_host, want.job_host):
+        bad = (got.job_host != want.job_host).nonzero()[:5].flatten()
+        fail(f"sharded scan {label}: job_host differs at {bad.tolist()}")
+    for k in ("mem_left", "cpus_left", "gpus_left", "slots_left"):
+        lane = torch.cat(getattr(got, k))
+        w = getattr(want, k)
+        if lane.dtype == torch.float32:
+            lane, w = lane.view(torch.int32), w.view(torch.int32)
+        if not torch.equal(lane, w):
+            fail(f"sharded scan {label}: {k} not bit-equal")
+    n = int((got.job_host >= 0).sum())
+    if n == 0:
+        fail(f"sharded scan {label}: no job placed")
+    return n
+
+
+def timed(fn, reps, dev, warm=True):
+    """Host-clock ms and CUDA-event ms of each of `reps` calls of `fn`
+    (each ends in a readback), after one untimed call when `warm`."""
+    import torch
+    if warm:
+        fn()
+    host, event = [], []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        t = time.perf_counter()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t) * 1e3)
+        event.append(a.elapsed_time(b))
+    return {"host_ms": host, "event_ms": event,
+            "host_ms_median": float(np.median(host)),
+            "event_ms_median": float(np.median(event))}
+
+
+def launches_and_syncs(fn):
+    """Device launches (kernels and copies, by the profiler's CUDA
+    activity alone: a sharded scan makes ~10^5) and host syncs (by
+    source line, PyTorch's sync debug mode) of one `fn()`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from cook_tpu_torch.profile_cycle import sync_sources
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sources = sync_sources(fn)
+        torch.cuda.synchronize()
+    # the raw device events: no per-event Python objects to build
+    n = sum(e.device_type() == DeviceType.CUDA
+            for e in prof.profiler.kineto_results.events())
+    return {"launches_per_call": n,
+            "host_syncs_per_call": sum(sources.values()),
+            "host_sync_sources": sources}
+
+
+def par_costs(fn, reps, dev):
+    """timed() of `fn` and launches_and_syncs() of one more call."""
+    return {**timed(fn, reps, dev), **launches_and_syncs(fn)}
+
+
+def parallel_phase(dev):
+    """11: the multi-device paths on shards of the card (see the module
+    docstring). Returns (stats, {path: kernel launch counts})."""
+    import torch
+    from cook_tpu_torch import e2e
+    from cook_tpu_torch.entry import dryrun_multichip
+    from cook_tpu_torch.ops import cycle as cycle_ops
+    from cook_tpu_torch.ops import fused_match as fm
+    from cook_tpu_torch.ops import match as match_ops
+    from cook_tpu_torch.parallel import federation
+    from cook_tpu_torch.parallel import pools as pool_par
+    from cook_tpu_torch.parallel import sharded_match
+    import bench_torch
+
+    shards = [dev] * PAR_SHARDS
+    stats = {"shards": PAR_SHARDS, "device_count": torch.cuda.device_count()}
+    launches = {}
+
+    # ---- the host-sharded scan at the sequential cell's C x H ----------
+    C, H = PAR_SCAN_C, PAR_SCAN_H
+    hmesh = sharded_match.make_host_mesh(devices=shards)
+    jobs, hosts, forb, _ = par_scan_problem(np.random.default_rng(11), C,
+                                            H, dev)
+    scan = sharded_match.sharded_match_scan(hmesh)
+    got = scan(jobs, hosts, forb)
+    before = fm.LAUNCHES["exact_scan"]
+    want = match_ops.match_scan(jobs, hosts, forb, use_kernel=True)
+    if fm.LAUNCHES["exact_scan"] != before + 1:
+        fail("the one-device scan beside the sharded one is not exact_scan")
+    placed = check_sharded_scan(got, want, "plain")
+    jg, hg, fg, bg = par_scan_problem(np.random.default_rng(12), C, H, dev,
+                                      groups=PAR_GROUPS, forb_pairs=0.1,
+                                      bonus=True)
+    scan_g = sharded_match.sharded_match_scan(hmesh, num_groups=PAR_GROUPS,
+                                              with_bonus=True)
+    got_g = scan_g(jg, hg, fg, bg)
+    before = dict(fm.LAUNCHES)
+    want_g = match_ops.match_scan(jg, hg, fg, num_groups=PAR_GROUPS,
+                                  bonus=bg, use_kernel=True)
+    if fm.LAUNCHES != before:
+        fail("the grouped scan with a bonus launched a kernel")
+    placed_g = check_sharded_scan(got_g, want_g, "groups+bonus")
+    jh = got_g.job_host.cpu().numpy()
+    grp = jg.group.cpu().numpy()
+    for g in range(PAR_GROUPS):
+        used = jh[(grp == g) & (jh >= 0)]
+        if len(used) != len(set(used.tolist())):
+            fail(f"sharded scan: unique group {g} shares a host")
+    # one timed call (the first ran above), one counted
+    fn = lambda: scan(jobs, hosts, forb).job_host.cpu()   # noqa: E731
+    stats["sharded_scan"] = {
+        "C": C, "H": H, "placed": placed, "placed_groups_bonus": placed_g,
+        **timed(fn, 1, dev, warm=False), **launches_and_syncs(fn),
+        "exact_scan_ms": cuda_ms(
+            lambda: match_ops.match_scan(jobs, hosts, forb, use_kernel=True),
+            5), "elapsed_s": time.perf_counter() - T_START}
+    print(json.dumps({"parallel_sharded_scan": stats["sharded_scan"]}),
+          flush=True)
+
+    # ---- the pool-sharded cycle at bench.py::bench_pools' shape -------
+    sp = PAR_POOLS
+    n = sp["n_pools"]
+    args = bench_torch.pools_setup(n, sp["R"], sp["P"], sp["H"], sp["U"],
+                                   dev)
+    kw = dict(num_considerable=sp["C"], sequential=False)
+    one = pool_par.pool_sharded_cycle(
+        pool_par.make_pool_mesh(devices=[dev]), **kw)
+    four = pool_par.pool_sharded_cycle(
+        pool_par.make_pool_mesh(devices=shards), **kw)
+    r1 = one(args)
+    torch.cuda.synchronize()
+    fm.reset_launches()
+    dense0 = match_ops.ROUNDS["dense"]
+    r4 = four(args)
+    torch.cuda.synchronize()
+    launches["pools"] = dict(fm.LAUNCHES)
+    dense = match_ops.ROUNDS["dense"] - dense0
+    lp = launches["pools"]
+    if lp["exact_scan"] != n or lp["blocked_cumsum"] < n \
+            or lp["ordered_scatter"] < n or lp["best_host"] != dense \
+            or off_route(lp):
+        fail(f"pool-sharded cycle launches {lp} ({dense} dense rounds)")
+    for f in cycle_ops.CycleResult._fields:
+        if not torch.equal(getattr(r1.result, f), getattr(r4.result, f)):
+            fail(f"pool-sharded cycle: {f} differs between one and "
+                 f"{PAR_SHARDS} shards")
+    for p in range(n):
+        direct = cycle_ops.rank_and_match(
+            *(None if a is None else
+              match_ops.Hosts(*(x[p] for x in a)) if isinstance(a, tuple)
+              else a[p] for a in args), use_kernel=True, **kw)
+        for f in cycle_ops.CycleResult._fields:
+            if not torch.equal(getattr(direct, f), getattr(r4.result, f)[p]):
+                fail(f"pool-sharded cycle: pool {p} {f} differs from its "
+                     f"own rank_and_match")
+    jh = r4.result.job_host
+    sums = [int((jh >= 0).sum()), int(r4.result.considerable.sum()),
+            int(args[14].sum())]
+    if [int(r4.stats.total_matched), int(r4.stats.total_considerable),
+            int(r4.stats.total_pending)] != sums or not sums[0]:
+        fail(f"pool-sharded totals {r4.stats} against counts {sums}")
+    cpu0 = cycle_ops.rank_and_match(
+        *(None if a is None else
+          match_ops.Hosts(*(x[0].cpu() for x in a)) if isinstance(a, tuple)
+          else a[0].cpu() for a in args), use_kernel=True, **kw)
+    for f in cycle_ops.CycleResult._fields:
+        if not torch.equal(getattr(cpu0, f), getattr(r4.result, f)[0].cpu()):
+            fail(f"pool-sharded cycle: pool 0 {f} differs from the CPU path")
+    # the federated 2 x 2 mesh over the same pools, as (2 slices, 4)
+    fmesh = federation.make_federation_mesh(2, PAR_SHARDS // 2,
+                                            devices=shards)
+    fed = federation.federated_cycle(fmesh, **kw)
+    fo = fed(federation.slice_args(args, 2))
+    for f in cycle_ops.CycleResult._fields:
+        x = getattr(fo.result, f)
+        if not torch.equal(x.reshape((n,) + x.shape[2:]),
+                           getattr(r4.result, f)):
+            fail(f"federated cycle: {f} differs from the pool-sharded one")
+    per_slice = [int((jh[:n // 2] >= 0).sum()), int((jh[n // 2:] >= 0).sum())]
+    if fo.stats.per_slice_matched.tolist() != per_slice \
+            or int(fo.stats.total_matched) != sums[0]:
+        fail(f"federated totals {fo.stats} against {per_slice}")
+    stats["pools"] = {
+        **{k: v for k, v in sp.items()}, "matched_per_cycle": sums[0],
+        "considered_per_cycle": sums[1], "dense_rounds": dense,
+        "kernel_launches": lp,
+        "one_device": timed(lambda: int(one(args).stats.total_matched),
+                            PAR_TIMED, dev),
+        f"{PAR_SHARDS}_shards": par_costs(
+            lambda: int(four(args).stats.total_matched), PAR_TIMED, dev),
+        "federated_2x2": timed(lambda: int(fed(federation.slice_args(
+            args, 2)).stats.total_matched), PAR_TIMED, dev),
+        "per_slice_matched": per_slice,
+        "elapsed_s": time.perf_counter() - T_START}
+    print(json.dumps({"parallel_pools": stats["pools"]}), flush=True)
+
+    # ---- a resident pool sharded through the Coordinator ---------------
+    def resident_run(shard_devices, label):
+        with e2e.pinned_clocks():
+            w = e2e.Workload(device=dev, durable=False, status_shards=0,
+                             shard_devices=shard_devices, **E2E_SHAPE)
+            try:
+                per, host, event = [], [], []
+                fm.reset_launches()
+                for _ in range(PAR_RESIDENT_CYCLES):
+                    n0 = len(w.launched)
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    torch.cuda.synchronize()
+                    a.record()
+                    t = time.perf_counter()
+                    w.coord.match_cycle(e2e.POOL)
+                    b.record()
+                    torch.cuda.synchronize()
+                    host.append((time.perf_counter() - t) * 1e3)
+                    event.append(a.elapsed_time(b))
+                    per.append(list(w.launched[n0:]))
+                    w.advance()
+                counts = dict(fm.LAUNCHES)
+                rp = w.rp
+                out = {"per_cycle": per, "host_ms": host, "event_ms": event,
+                       "kernel_launches": counts}
+                if shard_devices is not None:
+                    blocks = rp.state["host"]
+                    if list(rp.mesh.devices.flat) != shard_devices or [
+                            h[k].device for h in blocks for k in h] != [
+                            d for d, h in zip(shard_devices, blocks)
+                            for _ in h]:
+                        fail(f"{label}: a shard's host tensors are not on "
+                             f"its device")
+                    if [f.device for f in rp.state["forb"]] != shard_devices:
+                        fail(f"{label}: a shard's mask rows are not on its "
+                             f"device")
+
+                    def one_cycle():
+                        w.coord.match_cycle(e2e.POOL)
+                        w.advance()
+
+                    c = launches_and_syncs(one_cycle)
+                    out["launches_per_cycle"] = c["launches_per_call"]
+                    out["host_syncs_per_cycle"] = c["host_syncs_per_call"]
+                    out["host_sync_sources"] = c["host_sync_sources"]
+                out["setup_s"] = w.seed_s
+                out["elapsed_s"] = time.perf_counter() - T_START
+                return out
+            finally:
+                w.close()
+
+    plain = resident_run(None, "resident pool, one device")
+    sharded = resident_run(shards, "resident pool, sharded")
+    launches["sharded"] = sharded.pop("kernel_launches")
+    ls = launches["sharded"]
+    if ls["exact_scan"] or ls["blocked_cumsum"] < PAR_RESIDENT_CYCLES \
+            or ls["ordered_scatter"] < PAR_RESIDENT_CYCLES:
+        fail(f"sharded resident cycles launched {ls}")
+    for c, (g, h) in enumerate(zip(sharded["per_cycle"],
+                                   plain["per_cycle"])):
+        if g != h:
+            fail(f"sharded resident cycle {c}: "
+                 + _first_launch_difference(g, h))
+    if not sum(len(x) for x in plain["per_cycle"]):
+        fail("the resident cycles launched nothing")
+    stats["sharded_pool"] = {
+        **E2E_SHAPE, "C": 1024, "cycles": PAR_RESIDENT_CYCLES,
+        "launched_per_cycle": [len(x) for x in sharded["per_cycle"]],
+        "kernel_launches": ls,
+        "one_device_host_ms": plain["host_ms"],
+        "one_device_event_ms": plain["event_ms"],
+        **{k: v for k, v in sharded.items() if k != "per_cycle"}}
+    print(json.dumps({"parallel_sharded_pool": stats["sharded_pool"]}),
+          flush=True)
+
+    # ---- dryrun_multichip on shards of the card, and a real mesh -------
+    t0 = time.perf_counter()
+    dryrun_multichip(PAR_SHARDS, devices=shards)
+    stats["dryrun_s"] = time.perf_counter() - t0
+    nd = torch.cuda.device_count()
+    if nd > 1:
+        # the same paths over every visible card, held against the above
+        real = sharded_match.sharded_match_scan(
+            sharded_match.make_host_mesh(nd))
+        if H % nd == 0:
+            check_sharded_scan(real(jobs, hosts, forb), want,
+                               f"{nd}-card mesh")
+        if n % nd == 0:
+            rn = pool_par.pool_sharded_cycle(pool_par.make_pool_mesh(nd),
+                                             **kw)(args)
+            for f in cycle_ops.CycleResult._fields:
+                if not torch.equal(getattr(rn.result, f),
+                                   getattr(r4.result, f)):
+                    fail(f"pool-sharded cycle on {nd} cards: {f} differs")
+        stats["real_mesh_devices"] = nd
+    print(json.dumps({"parallel_dryrun_s": stats["dryrun_s"],
+                      "device_count": nd}), flush=True)
+    return stats, launches
+
 
 def main():
     import torch
@@ -2090,6 +2469,9 @@ def main():
     # ---- 10. python -m server, and the simulator card against CPU ----------
     operator_out, sim_launches = operator_phase(dev)
     mark("operator")
+    # ---- 11. the multi-device paths on shards of the card ---------------
+    parallel_out, par_launches = parallel_phase(dev)
+    mark("parallel")
 
     def cycle_stats(phase, host, match):
         return {
@@ -2153,6 +2535,7 @@ def main():
         "coordinator_paths": paths_out,
         "server": server_out,
         "operator": operator_out,
+        "parallel": parallel_out,
         "ordered_scatter_sorted_rebalance_usage_ms": rs_ms,
         "ordered_scatter_sorted_plain_ms": rs_plain_ms,
         "ordered_scatter_sorted_bound_ms": rs_bound[0],
@@ -2171,7 +2554,9 @@ def main():
                    "rebalance": reb_launches[k],
                    "e2e_sequential": e2e_launches["sequential"][k],
                    "e2e_batched": e2e_launches["batched"][k],
-                   "server": server_launches[k], "sim": sim_launches[k]}
+                   "server": server_launches[k], "sim": sim_launches[k],
+                   "pools": par_launches["pools"][k],
+                   "sharded": par_launches["sharded"][k]}
                for k in seq_launches}
 
     def entry(name, route, source, replaces, err, ms, plain, bnd, lib,

@@ -92,12 +92,13 @@ def job_uuid(n: int) -> str:
 
 class Workload:
     """bench_e2e's store, mock cluster and coordinator, seeded and with
-    the resident pool enabled. `launched` lists every backend launch as
-    (job uuid, hostname), in order."""
+    the resident pool enabled (its host axis sharded over `shard_devices`
+    when given). `launched` lists every backend launch as (job uuid,
+    hostname), in order."""
 
     def __init__(self, P0=100_000, H=10_000, U=500, consider=None,
                  pipeline_depth=None, async_consumer=False, device="cuda",
-                 durable=True, status_shards=19):
+                 durable=True, status_shards=19, shard_devices=None):
         self.rng = rng = np.random.default_rng(SEED)
         self.U = U
         hosts = [MockHost(f"h{i}", mem=float(rng.uniform(64, 256) * 1024),
@@ -139,7 +140,8 @@ class Workload:
         self.store.create_jobs(self.mkjobs(P0))
         self.seed_s = time.perf_counter() - t0
         self.coord.enable_resident(pool=POOL,
-                                   synchronous=not async_consumer)
+                                   synchronous=not async_consumer,
+                                   devices=shard_devices)
         self.rp = self.coord._resident[POOL]
         self._stop = threading.Event()
         self._threads: list = []

@@ -58,12 +58,13 @@ def sequential_for(num_considerable: int) -> bool:
 
 
 def cycle_arrays(R=256, Pn=512, H=64, U=16, seed=0, constrained=0.0,
-                 ports=False, est=False):
+                 ports=False, est=False, rng=None):
     """numpy (args, kwargs) of one `rank_and_match` call. The first draws
     replay __graft_entry__._cycle_args exactly; the optional lanes
     (a constrained share of pending jobs with a dense forbidden mask,
-    ports, estimated completion) are drawn after them."""
-    rng = np.random.default_rng(seed)
+    ports, estimated completion) are drawn after them. `rng` continues
+    a stream (pools drawn one after another) instead of `seed`."""
+    rng = np.random.default_rng(seed) if rng is None else rng
     f32, i32 = np.float32, np.int32
     args = [
         rng.integers(0, U, R).astype(i32),
@@ -124,6 +125,25 @@ def cycle_args(R=256, Pn=512, H=64, U=16, seed=0, device="cuda", **opts):
     args = [match_ops.Hosts(**{k: t(v) for k, v in a.items()})
             if isinstance(a, dict) else t(a) for a in arrays]
     return tuple(args), {k: t(v) for k, v in kw.items()}
+
+
+def pool_cycle_args(n_pools, R=256, Pn=512, H=64, U=16, seed=0,
+                    device="cuda"):
+    """`n_pools` pools of `cycle_arrays` drawn one after another from one
+    seeded stream (__graft_entry__._cycle_args with n_pools), stacked on
+    a leading pools axis as tensors on `device`: the arguments of a
+    parallel.pools / parallel.federation cycle."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    parts = [cycle_arrays(R, Pn, H, U, rng=rng)[0] for _ in range(n_pools)]
+
+    def stack(xs):
+        return torch.from_numpy(np.stack(xs)).to(dev)
+
+    return tuple(
+        match_ops.Hosts(**{k: stack([x[k] for x in col]) for k in col[0]})
+        if isinstance(col[0], dict) else stack(col)
+        for col in zip(*parts))
 
 
 def entry(device="cuda"):
@@ -394,3 +414,166 @@ def resident_workload(**kw) -> ResidentWorkload:
     sequential path; C=8192 is BASELINE's headline batched cycle,
     bench.py `bench_cycle`)."""
     return ResidentWorkload(**kw)
+
+
+def dryrun_multichip(n_devices: int, device="cuda", devices=None) -> None:
+    """__graft_entry__.dryrun_multichip on the port: one step each of the
+    mesh paths over `n_devices` shards, at tiny shapes, printing the
+    reference's line. The shards are the first `n_devices` visible
+    devices of type `device` (raises when fewer are visible), or an
+    explicit `devices` list, which may repeat a device (`[cpu] * 8`, or
+    four shards on one card).
+
+    1. the pool-sharded cycle with psum totals;
+    2. the host-sharded greedy match, 4 unique placement groups;
+    3. the federated 2-D (slice x pools) cycle, when n is even and >= 4;
+    4. a Coordinator with one resident pool per mesh device, running
+       cycles and launching, completions flowing back;
+    5. ONE resident pool sharded over all the shards through the
+       Coordinator, launching what the single-device pool launches, its
+       unique group on distinct hosts."""
+    from cook_tpu_torch.backends.base import ClusterRegistry
+    from cook_tpu_torch.backends.mock import MockCluster, MockHost
+    from cook_tpu_torch.parallel import pools as pool_par
+    from cook_tpu_torch.parallel import sharded_match, visible_devices
+    from cook_tpu_torch.scheduler.coordinator import (Coordinator,
+                                                      SchedulerConfig)
+    from cook_tpu_torch.state.model import Group, Job, JobState, new_uuid
+    from cook_tpu_torch.state.pools import Pool, PoolRegistry
+    from cook_tpu_torch.state.store import JobStore
+
+    devs = (visible_devices(n_devices, device) if devices is None
+            else [resolve_device(d) if not isinstance(d, torch.device)
+                  else d for d in devices])
+    if len(devs) < n_devices:
+        raise ValueError(f"need {n_devices} devices, have {len(devs)}")
+    devs = devs[:n_devices]
+
+    # 1. pool-sharded full cycle with psum aggregates
+    mesh = pool_par.make_pool_mesh(devices=devs)
+    runner = pool_par.pool_sharded_cycle(mesh, num_considerable=32)
+    out = runner(pool_cycle_args(n_devices, R=32, Pn=48, H=8, U=4,
+                                 device=devs[0]))
+    assert int(out.stats.total_matched) >= 0
+
+    # 2. host-sharded distributed greedy match, unique host-placement
+    # groups riding the sharded path (per-shard occupancy)
+    hmesh = sharded_match.make_host_mesh(devices=devs)
+    fn = sharded_match.sharded_match_scan(hmesh, num_groups=4)
+    rng = np.random.default_rng(1)
+    N, H = 32, 2 * n_devices
+    grp = rng.integers(-1, 4, N).astype(np.int32)
+    jobs = match_ops.make_jobs(
+        mem=rng.uniform(1, 20, N).astype(np.float32),
+        cpus=rng.uniform(0.5, 8, N).astype(np.float32),
+        group=grp, unique_group=grp >= 0, device=devs[0])
+    hosts = match_ops.make_hosts(
+        mem=rng.uniform(30, 100, H).astype(np.float32),
+        cpus=rng.uniform(8, 32, H).astype(np.float32), device=devs[0])
+    res = fn(jobs, hosts, torch.zeros((N, H), dtype=torch.bool,
+                                      device=devs[0])).job_host.cpu().numpy()
+
+    # 3. multi-slice federation: 2-D (slice x pools) mesh with
+    # hierarchical psums, when the device count splits into two axes
+    fed_matched = "skipped"
+    if n_devices >= 4 and n_devices % 2 == 0:
+        from cook_tpu_torch.parallel import federation
+        fmesh = federation.make_federation_mesh(2, n_devices // 2,
+                                                devices=devs)
+        frunner = federation.federated_cycle(fmesh, num_considerable=32)
+        fout = frunner(federation.slice_args(pool_cycle_args(
+            n_devices, R=32, Pn=48, H=8, U=4, device=devs[0]), 2))
+        assert int(fout.stats.per_slice_matched.sum()) == \
+            int(fout.stats.total_matched)
+        fed_matched = int(fout.stats.total_matched)
+
+    # 4. the production path: a real Coordinator (store, mock backend,
+    # resident pools pinned one per mesh device) runs match cycles and
+    # launches through the bulk transaction; completions flow back
+    store = JobStore()
+    pools = PoolRegistry("pool0")
+    mhosts = []
+    for p in range(n_devices):
+        pools.add(Pool(name=f"pool{p}"))
+        mhosts += [MockHost(f"p{p}h{i}", mem=1000, cpus=16,
+                            pool=f"pool{p}") for i in range(2)]
+    cluster = MockCluster(mhosts, runtime_fn=lambda s: (5.0, True, None))
+    reg = ClusterRegistry()
+    reg.register(cluster)
+    coord = Coordinator(store, reg, pools=pools,
+                        config=SchedulerConfig(max_jobs_considered=64),
+                        device=devs[0])
+    for p in range(n_devices):
+        coord.enable_resident(f"pool{p}", synchronous=True, device=devs[p])
+    rng2 = np.random.default_rng(2)
+    js = [Job(uuid=new_uuid(), user=f"u{int(rng2.integers(0, 4))}",
+              command="true", mem=float(rng2.uniform(10, 200)),
+              cpus=float(rng2.uniform(0.5, 4)), pool=f"pool{i % n_devices}")
+          for i in range(8 * n_devices)]
+    store.create_jobs(js)
+    launched = completed = 0
+    for _ in range(4):
+        for p in range(n_devices):
+            launched += coord.match_cycle(f"pool{p}").matched
+        completed += cluster.advance(3.0)
+    coord.drain_resident()
+    assert launched > 0, "resident coordinator launched nothing"
+    assert completed > 0, "no completions flowed back"
+    # every pool's resident tensors live on the device it was given
+    for p in range(n_devices):
+        placed = coord._resident[f"pool{p}"].state["pend"]["mem"].device
+        assert placed == devs[p], (p, placed, devs[p])
+    n_running = sum(j.state == JobState.RUNNING for j in js)
+    coord.stop()
+
+    # 5. ONE production pool spanning ALL the shards: its host and mask
+    # tensors sharded, dispatch running the distributed scan through the
+    # Coordinator; the launch set equals the single-device oracle,
+    # a unique-host-placement group included
+    def shard_scenario(shards):
+        st = JobStore()
+        pl = PoolRegistry("big")
+        pl.add(Pool(name="big"))
+        cl = MockCluster([MockHost(f"bh{i}", mem=500, cpus=8, pool="big")
+                          for i in range(6)],
+                         runtime_fn=lambda s: (30.0, True, None))
+        rg = ClusterRegistry()
+        rg.register(cl)
+        co = Coordinator(st, rg, pools=pl,
+                         config=SchedulerConfig(max_jobs_considered=64),
+                         device=devs[0])
+        co.enable_resident("big", synchronous=True, devices=shards)
+        rr = np.random.default_rng(7)
+        g = Group(uuid=new_uuid(), name="g",
+                  host_placement={"type": "unique"})
+        jb = [Job(uuid=new_uuid(), user=f"u{int(rr.integers(0, 3))}",
+                  command="true", mem=float(rr.uniform(20, 120)),
+                  cpus=float(rr.uniform(0.5, 3)), pool="big")
+              for _ in range(20)]
+        gs = [Job(uuid=new_uuid(), user="u0", command="true", mem=30.0,
+                  cpus=1.0, pool="big", group=g.uuid) for _ in range(4)]
+        st.create_jobs(jb + gs, groups=[g])
+        co.match_cycle("big")
+        hostset = sorted(j.instances[0].hostname for j in jb + gs
+                         if j.instances)
+        ghosts = [j.instances[0].hostname for j in gs if j.instances]
+        rp = co._resident["big"]
+        co.stop()
+        return hostset, ghosts, rp
+
+    sharded_hosts, sharded_ghosts, srp = shard_scenario(devs)
+    oracle_hosts, _, _ = shard_scenario(None)
+    assert sharded_hosts == oracle_hosts, (sharded_hosts, oracle_hosts)
+    assert len(sharded_ghosts) == len(set(sharded_ghosts)), sharded_ghosts
+    shards = list(srp.mesh.devices.flat)
+    assert [h["mem"].device for h in srp.state["host"]] == shards == devs
+
+    print(f"dryrun_multichip({n_devices}): pool-sharded cycle matched "
+          f"{int(out.stats.total_matched)}; host-sharded match placed "
+          f"{int((res >= 0).sum())}/{N}; federated 2d mesh "
+          f"matched {fed_matched}; resident coordinator on {n_devices} "
+          f"devices launched {launched} (completed {completed}, running "
+          f"{n_running}, one pool per device); ONE pool sharded over "
+          f"{len(shards)} devices launched {len(sharded_hosts)} == "
+          f"single-device oracle, unique group on "
+          f"{len(set(sharded_ghosts))} distinct hosts")

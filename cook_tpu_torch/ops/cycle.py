@@ -34,13 +34,66 @@ from cook_tpu_torch.ops.segments import segment_cumsum
 I32_MAX = torch.iinfo(torch.int32).max
 
 
+def _block(x, s):
+    """Shard s's block of a host-axis input of sharded hosts: the s-th
+    of a list of per-shard blocks, or of the rows of a (rows, slot_of)
+    pair."""
+    if x is None:
+        return None
+    blocks = x[0] if isinstance(x, tuple) else x
+    if not isinstance(blocks, list):
+        raise TypeError("with sharded hosts, every host-axis input is a "
+                        "list of per-shard blocks")
+    return (blocks[s], x[1]) if isinstance(x, tuple) else blocks[s]
+
+
+def _host_columns(C, H, dev, pend_idx, in_use, forbidden, pend_ports,
+                  host_ports, pend_est_s, host_death_s, now_s, bonus):
+    """The compact batch's (C, H) forbidden mask and bonus (or None) over
+    H host columns on `dev`: all of them, or one shard's. The job-side
+    inputs live on the pending lanes' device."""
+    idx = pend_idx.to(dev, non_blocking=True)
+    use = in_use.to(dev, non_blocking=True)
+    if forbidden is None:
+        forb = torch.zeros((C, H), dtype=torch.bool, device=dev)
+    elif isinstance(forbidden, tuple):
+        rows, slot_of = forbidden
+        Kc = rows.shape[0]
+        fslot = slot_of[pend_idx].to(dev, non_blocking=True)
+        forb = rows[torch.clamp(fslot, 0, Kc - 1).long()] \
+            & ((fslot >= 0) & use)[:, None]
+    else:
+        forb = forbidden[idx] & use[:, None]
+    if pend_ports is not None and host_ports is not None:
+        want = pend_ports[pend_idx].to(dev, non_blocking=True)
+        forb = forb | (want[:, None] > host_ports[None, :])
+    if pend_est_s is not None and host_death_s is not None:
+        # est_end >= death forbids the host; est <= 0 = unconstrained
+        est = pend_est_s[pend_idx].to(dev, non_blocking=True)
+        now = torch.as_tensor(now_s, dtype=torch.int32, device=dev)
+        forb = forb | ((est > 0)[:, None]
+                       & ((now + est)[:, None] >= host_death_s[None, :]))
+    if bonus is None:
+        bonusc = None
+    elif isinstance(bonus, tuple):
+        brows, bslot = bonus
+        Kb = brows.shape[0]
+        bs = bslot[pend_idx].to(dev, non_blocking=True)
+        bonusc = torch.where((bs >= 0)[:, None],
+                             brows[torch.clamp(bs, 0, Kb - 1).long()], 0.0) \
+            * use[:, None]
+    else:
+        bonusc = bonus[idx] * use[:, None]
+    return forb, bonusc
+
+
 class CycleResult(NamedTuple):
     pending_dru: torch.Tensor     # (P,) dru score of each pending job
     queue_rank: torch.Tensor      # (P,) i32 fair-queue position among pending
     considerable: torch.Tensor    # (P,) bool — survived quota/cap filters
     job_host: torch.Tensor        # (P,) i32 assigned host or -1
-    mem_left: torch.Tensor        # (H,)
-    cpus_left: torch.Tensor       # (H,)
+    mem_left: torch.Tensor        # (H,); the four host lanes are lists of
+    cpus_left: torch.Tensor       # (H,)  per-shard blocks with sharded hosts
     gpus_left: torch.Tensor       # (H,)
     slots_left: torch.Tensor      # (H,) i32
     cons_idx: torch.Tensor        # (C,) i32 pending row per compact slot, -1
@@ -64,7 +117,10 @@ def rank_and_match(
     pend_valid, pend_mem_share, pend_cpus_share, pend_group,
     pend_unique_group,
     # hosts
-    hosts: match_ops.Hosts,
+    hosts: match_ops.Hosts,    # or a list of per-shard Hosts (a pool
+                               # sharded over devices; needs `matcher`,
+                               # and every host-axis input below as a
+                               # list of per-shard blocks, rows included)
     forbidden,                 # None | (P, H) bool dense | tuple
                                # (rows (K, H) bool, slot_of (P,) i32):
                                # row p's mask is rows[slot_of[p]] when
@@ -174,7 +230,6 @@ def rank_and_match(
 
     # ---- 3. compact the considerable head, then match ----------------
     C = num_considerable
-    H = hosts.mem.shape[0]
     cons_pos = torch.cumsum(considerable_q.to(torch.int32), 0,
                             dtype=torch.int32) - 1
     slot = torch.where(considerable_q, torch.clamp(cons_pos, max=C), C)
@@ -190,35 +245,27 @@ def rank_and_match(
         mem=gq(pend_mem), cpus=gq(pend_cpus), gpus=gq(pend_gpus),
         valid=in_use, group=gq(pend_group),
         unique_group=gq(pend_unique_group))
-    if forbidden is None:
-        forb = torch.zeros((C, H), dtype=torch.bool, device=dev)
-    elif isinstance(forbidden, tuple):
-        rows, slot_of = forbidden
-        Kc = rows.shape[0]
-        fslot = slot_of[pend_idx]
-        forb = rows[torch.clamp(fslot, 0, Kc - 1).long()] \
-            & ((fslot >= 0) & in_use)[:, None]
+    if isinstance(hosts, match_ops.Hosts):
+        forb, bonusc = _host_columns(
+            C, hosts.mem.shape[0], dev, pend_idx, in_use, forbidden,
+            pend_ports, host_ports, pend_est_s, host_death_s, now_s, bonus)
     else:
-        forb = forbidden[pend_idx] & in_use[:, None]
-    if pend_ports is not None and host_ports is not None:
-        forb = forb | (pend_ports[pend_idx][:, None] > host_ports[None, :])
-    if pend_est_s is not None and host_death_s is not None:
-        # est_end >= death forbids the host; est <= 0 = unconstrained
-        est = pend_est_s[pend_idx]
-        now = torch.as_tensor(now_s, dtype=torch.int32, device=dev)
-        forb = forb | ((est > 0)[:, None]
-                       & ((now + est)[:, None] >= host_death_s[None, :]))
-    if bonus is None:
-        bonusc = None
-    elif isinstance(bonus, tuple):
-        brows, bslot = bonus
-        Kb = brows.shape[0]
-        bs = bslot[pend_idx]
-        bonusc = torch.where((bs >= 0)[:, None],
-                             brows[torch.clamp(bs, 0, Kb - 1).long()], 0.0) \
-            * in_use[:, None]
-    else:
-        bonusc = bonus[pend_idx] * in_use[:, None]
+        # hosts sharded over devices (a list of per-shard Hosts, the
+        # host-axis inputs lists of per-shard blocks): each shard's
+        # columns of the mask and bonus built on its device
+        if matcher is None:
+            raise ValueError("sharded hosts need a sharded matcher")
+        forb, bonusc = [], []
+        for s, hs in enumerate(hosts):
+            f, b = _host_columns(
+                C, hs.mem.shape[0], hs.mem.device, pend_idx, in_use,
+                _block(forbidden, s), pend_ports, _block(host_ports, s),
+                pend_est_s, _block(host_death_s, s), now_s,
+                _block(bonus, s))
+            forb.append(f)
+            bonusc.append(b)
+        if bonus is None:
+            bonusc = None
     if matcher is not None:
         res = matcher(jobs, hosts, forb, bonusc)
     elif sequential:

@@ -139,6 +139,101 @@ def _scan_assign(jobs: Jobs, hosts: Hosts, forbidden, bonus,
     return (mem_left, cpus_left, gpus_left, slots_left, group_occ), job_host
 
 
+def _scan_assign_candidates(jobs: Jobs, hosts: Hosts, forbidden, bonus,
+                            num_groups: int, carry, K: int = 32):
+    """Exact sequential greedy with candidate compression (match.py:
+    175-290): the results of `_scan_assign` at O(K + steps) per step
+    instead of O(H). Off every path, as in the reference (its tests and
+    backends where a gather is cheap).
+
+    Each job's top-K hosts by fitness against the INITIAL capacities
+    (initially feasible, allowed) are precomputed; a step then scores
+    only the job's K candidates and the hosts earlier steps modified
+    (each step depletes at most one host, the only one whose occupancy
+    can change too). Capacity only shrinks, so an unmodified candidate
+    dominates every unmodified non-candidate: the top-K order is
+    `lax.top_k`'s (the f32 bits as a total order, ties lowest index
+    first, as argmax breaks them), never `torch.topk`'s. When all of a
+    job's feasible candidates were modified the step falls back to the
+    full O(H) argmax; the reference's `lax.cond` becomes a branch on the
+    predicate read back. Returns (carry, job_host)."""
+    from cook_tpu_torch.ops.rebalance import _topk_order
+
+    H = hosts.mem.shape[0]
+    S = jobs.mem.shape[0]
+    dev = hosts.mem.device
+    mem_left, cpus_left, gpus_left, slots_left, group_occ = carry
+    group_occ = group_occ.clone()
+    gclip = torch.clamp(jobs.group, 0, num_groups - 1).long()
+    ok0 = _feasible(jobs.mem[:, None], jobs.cpus[:, None],
+                    jobs.gpus[:, None], mem_left[None, :],
+                    cpus_left[None, :], gpus_left[None, :],
+                    hosts.cap_gpus[None, :], hosts.valid[None, :],
+                    slots_left[None, :], forbidden)
+    ok0 = ok0 & ~(jobs.unique_group[:, None] & group_occ[gclip])
+    fit0 = _fitness(jobs.mem[:, None], jobs.cpus[:, None],
+                    mem_left[None, :], cpus_left[None, :],
+                    hosts.cap_mem[None, :], hosts.cap_cpus[None, :]) + bonus
+    fit0 = torch.where(ok0, fit0, -1.0)
+    cands = _topk_order(fit0)[:, :K]                  # (S, K)
+    cand_ok = fit0.gather(1, cands) > -0.5
+
+    dirty = torch.zeros(H, dtype=torch.bool, device=dev)
+    chosen = torch.full((S,), H, dtype=torch.int64, device=dev)
+    job_host = torch.empty(S, dtype=torch.int32, device=dev)
+    for i in range(S):
+        j_mem, j_cpus, j_gpus = jobs.mem[i], jobs.cpus[i], jobs.gpus[i]
+        j_valid, j_unique, g = jobs.valid[i], jobs.unique_group[i], gclip[i]
+        cands_i, cand_ok_i = cands[i], cand_ok[i]
+        idx = torch.cat([cands_i, chosen])            # (K + S,)
+        slot_live = torch.cat([cand_ok_i, chosen < H])  # padded slots out
+        idxc = torch.clamp(idx, 0, H - 1)
+        ok = _feasible(j_mem, j_cpus, j_gpus, mem_left[idxc],
+                       cpus_left[idxc], gpus_left[idxc],
+                       hosts.cap_gpus[idxc], hosts.valid[idxc],
+                       slots_left[idxc], forbidden[i][idxc])
+        ok = ok & ~(j_unique & group_occ[g][idxc]) & slot_live & j_valid
+        fit = _fitness(j_mem, j_cpus, mem_left[idxc], cpus_left[idxc],
+                       hosts.cap_mem[idxc], hosts.cap_cpus[idxc]) \
+            + bonus[i][idxc]
+        fit = torch.where(ok, fit, -1.0)
+        m = torch.max(fit)
+        # argmax's tie-break: the LOWEST host index among equal maxima
+        best = torch.min(torch.where(fit >= m, idxc, H))
+        assigned = m > -0.5
+        need_full = (cand_ok_i.any()
+                     & ~(cand_ok_i & ~dirty[torch.clamp(cands_i, 0, H - 1)])
+                     .any() & j_valid)
+        if bool(need_full):
+            okf = _feasible(j_mem, j_cpus, j_gpus, mem_left, cpus_left,
+                            gpus_left, hosts.cap_gpus, hosts.valid,
+                            slots_left, forbidden[i])
+            okf = okf & ~(j_unique & group_occ[g]) & j_valid
+            fitf = torch.where(okf, _fitness(j_mem, j_cpus, mem_left,
+                                             cpus_left, hosts.cap_mem,
+                                             hosts.cap_cpus) + bonus[i],
+                               -1.0)
+            best = torch.argmax(fitf)
+            assigned = fitf[best] > -0.5
+        job_host[i] = torch.where(assigned, best, NO_HOST)
+        bc = torch.clamp(best, 0, H - 1).view(1)
+        take = torch.where(assigned, 1.0, 0.0)
+        # one add at the chosen host (-0.0 when unassigned), as
+        # `.at[bc].add`: the other hosts are untouched
+        mem_left = mem_left.index_put((bc,), (-take * j_mem).view(1),
+                                      accumulate=True)
+        cpus_left = cpus_left.index_put((bc,), (-take * j_cpus).view(1),
+                                        accumulate=True)
+        gpus_left = gpus_left.index_put((bc,), (-take * j_gpus).view(1),
+                                        accumulate=True)
+        slots_left = slots_left.index_put(
+            (bc,), -assigned.to(slots_left.dtype).view(1), accumulate=True)
+        group_occ[g, bc] = group_occ[g, bc] | (assigned & j_unique)
+        dirty[bc] = dirty[bc] | assigned
+        chosen[i] = torch.where(assigned, best, H)
+    return (mem_left, cpus_left, gpus_left, slots_left, group_occ), job_host
+
+
 def _scan_core(jobs: Jobs, hosts: Hosts, forbidden, bonus,
                num_groups: int, carry, use_kernel: bool = False,
                bonus_zero: bool = False):

@@ -466,8 +466,8 @@ def build_scheduler(config, read_only=False, device="cuda"):
         shard_n = getattr(s, "resident_shard_devices", 0)
         shard_devs = None
         if shard_n and shard_n > 1:
-            # with enough cards, ResidentPool(devices=...) raises until
-            # the sharded cycle is ported; that failure is not caught
+            # with enough cards each pool shards its host axis over
+            # them (ResidentPool(devices=...), the host-sharded scan)
             devs = _devices(device, shard_n)
             if len(devs) >= shard_n:
                 shard_devs = devs[:shard_n]

@@ -41,6 +41,8 @@ from cook_tpu_torch.device import resolve_device, to_device
 from cook_tpu_torch.ops import cycle as cycle_ops
 from cook_tpu_torch.ops import match as match_ops
 from cook_tpu_torch.ops import segments
+from cook_tpu_torch.parallel import Mesh
+from cook_tpu_torch.parallel.sharded_match import HOST_AXIS, resident_matcher
 from cook_tpu_torch.scheduler import constraints as constraints_mod
 from cook_tpu_torch.scheduler.tensorize import F32_MAX, bucket, share_of
 from cook_tpu_torch.state.model import JobState
@@ -126,22 +128,72 @@ def scatter_run(state, idx, rf, ri):
     _apply_run(state["run"], idx, rf, ri)
 
 
+# A pool sharded over devices (ResidentPool(devices=...)) keeps its host
+# axis in D contiguous blocks: "host" is a list of per-shard lane dicts,
+# "forb" and "bonus" lists of per-shard (rows, H / D) blocks, each with
+# its own sink slot and on its shard's device; "pend" and "run" stay on
+# the first device. Host-axis deltas route to their shard.
+def _shards(host_blocks):
+    """(first global host, hosts, device, lanes) of each shard."""
+    lo = 0
+    for h in host_blocks:
+        n = h["mem"].shape[0] - 1
+        yield lo, n, h["mem"].device, h
+        lo += n
+
+
+def _local(idx, lo, n, dev):
+    """Global host indices as one shard's local indices on its device:
+    another shard's hosts and the drop index go to the shard's sink."""
+    idx = idx.to(dev, non_blocking=True)
+    return torch.where((idx >= lo) & (idx < lo + n), idx - lo, n)
+
+
+def _set_row_blocks(blocks, slot_idx, rows):
+    """blocks[slot_idx] = rows for a (rows, H) block or per-shard column
+    blocks of one."""
+    if not isinstance(blocks, list):
+        blocks[slot_idx.long()] = rows
+        return
+    lo = 0
+    for b in blocks:
+        n = b.shape[1]
+        b[slot_idx.to(b.device, non_blocking=True).long()] = \
+            rows[:, lo:lo + n].to(b.device, non_blocking=True)
+        lo += n
+
+
 def scatter_forb(state, slot_idx, rows):
-    state["forb"][slot_idx.long()] = rows
+    _set_row_blocks(state["forb"], slot_idx, rows)
 
 
 def scatter_bonus(state, slot_idx, rows):
-    state["bonus"][slot_idx.long()] = rows
+    _set_row_blocks(state["bonus"], slot_idx, rows)
 
 
 def scatter_credit(state, idx, cf, ci):
-    _apply_credit(state["host"], idx, cf, ci)
+    host = state["host"]
+    if not isinstance(host, list):
+        _apply_credit(host, idx, cf, ci)
+        return
+    # every shard takes the whole update list, another shard's updates
+    # dropped: each host's credits still add in update order
+    for lo, n, d, h in _shards(host):
+        _apply_credit(h, _local(idx, lo, n, d),
+                      cf.to(d, non_blocking=True),
+                      ci.to(d, non_blocking=True))
 
 
 def scatter_hostset(state, idx, hf, hi):
     """Set whole host rows (adds, removals, rejoins); unlike the
     additive credit scatter, this REPLACES the row."""
-    _set_rows(state["host"], HOST_F32, HOST_I32, idx, hf, hi)
+    host = state["host"]
+    if not isinstance(host, list):
+        _set_rows(host, HOST_F32, HOST_I32, idx, hf, hi)
+        return
+    for lo, n, d, h in _shards(host):
+        _set_rows(h, HOST_F32, HOST_I32, _local(idx, lo, n, d),
+                  hf.to(d, non_blocking=True), hi.to(d, non_blocking=True))
 
 
 SCATTERS = {"pend": scatter_pend, "run": scatter_run, "forb": scatter_forb,
@@ -162,21 +214,31 @@ def device_cycle(state, deltas, qm, qc, qn, considerable_limit, now_s, *,
      b_idx, brows) = deltas
     _apply_pend(state["pend"], p_idx, pf, pi)
     _apply_run(state["run"], r_idx, rf, ri)
-    _apply_credit(state["host"], c_idx, cf, ci)
+    scatter_credit(state, c_idx, cf, ci)
     scatter_forb(state, f_idx, frows)
     scatter_bonus(state, b_idx, brows)
 
     # views without the sink slot
     p = {k: v[:-1] for k, v in state["pend"].items()}
     r = {k: v[:-1] for k, v in state["run"].items()}
-    h = {k: v[:-1] for k, v in state["host"].items()}
-    forb = state["forb"][:-1]
-    bonus = state["bonus"][:-1]
-    hosts = match_ops.Hosts(
+    sharded = isinstance(state["host"], list)
+    if sharded:
+        hb = [{k: v[:-1] for k, v in h.items()} for h in state["host"]]
+        forb = [f[:-1] for f in state["forb"]]
+        bonus = [b[:-1] for b in state["bonus"]]
+    else:
+        hb = [{k: v[:-1] for k, v in state["host"].items()}]
+        forb = state["forb"][:-1]
+        bonus = state["bonus"][:-1]
+    hosts = [match_ops.Hosts(
         mem=h["mem"], cpus=h["cpus"], gpus=h["gpus"],
         cap_mem=h["cap_mem"], cap_cpus=h["cap_cpus"],
         cap_gpus=h["cap_gpus"], valid=h["valid"],
-        task_slots=h["task_slots"])
+        task_slots=h["task_slots"]) for h in hb]
+    ports = [h["ports"] for h in hb]
+    death = [h["death_s"] for h in hb]
+    if not sharded:
+        hosts, ports, death = hosts[0], ports[0], death[0]
     gpu = dru_mode == "gpu"
     res = cycle_ops.rank_and_match(
         r["user"], r["mem"], r["cpus"], r["priority"], r["start_time"],
@@ -191,14 +253,14 @@ def device_cycle(state, deltas, qm, qc, qn, considerable_limit, now_s, *,
         run_gpus=r["gpus"] if gpu else None,
         run_gpu_share=r["gpu_share"] if gpu else None,
         pend_gpu_share=p["gpu_share"] if gpu else None,
-        pend_ports=p["ports"], host_ports=h["ports"],
+        pend_ports=p["ports"], host_ports=ports,
         bonus=(bonus, p["bonus_slot"]) if with_bonus else None,
         pend_est_s=p["est_s"] if with_est else None,
-        host_death_s=h["death_s"] if with_est else None,
+        host_death_s=death if with_est else None,
         now_s=now_s if with_est else None,
         matcher=matcher, match_kw=match_kw)
     Pcap = p["valid"].shape[0]
-    H = h["ports"].shape[0]
+    H = sum(h["ports"].shape[0] for h in hb)
     # matched rows leave the pending set on the device, immediately
     matched = (res.cons_idx >= 0) & (res.cons_host >= 0)
     state["pend"]["valid"].index_fill_(
@@ -208,50 +270,83 @@ def device_cycle(state, deltas, qm, qc, qn, considerable_limit, now_s, *,
     want = torch.where(
         matched, p["ports"][torch.clamp(res.cons_idx, 0, Pcap - 1).long()],
         0)
-    used = torch.zeros(H + 1, dtype=torch.int32, device=want.device)
-    used.index_add_(0, torch.where(matched, res.cons_host, H).long(), want)
-    # the match result IS the new host availability
-    h["mem"].copy_(res.mem_left)
-    h["cpus"].copy_(res.cpus_left)
-    h["gpus"].copy_(res.gpus_left)
-    h["task_slots"].copy_(res.slots_left)
-    h["ports"].sub_(used[:H])
+    target = torch.where(matched, res.cons_host, H)
+    lanes = zip(res.mem_left, res.cpus_left, res.gpus_left,
+                res.slots_left) if sharded else \
+        [(res.mem_left, res.cpus_left, res.gpus_left, res.slots_left)]
+    lo = 0
+    for h, (mem, cpus, gpus, slots) in zip(hb, lanes):
+        n, d = h["ports"].shape[0], h["ports"].device
+        used = torch.zeros(n + 1, dtype=torch.int32, device=d)
+        used.index_add_(0, (_local(target, lo, n, d) if sharded
+                            else target).long(),
+                        want.to(d, non_blocking=True))
+        # the match result IS the new host availability
+        h["mem"].copy_(mem)
+        h["cpus"].copy_(cpus)
+        h["gpus"].copy_(gpus)
+        h["task_slots"].copy_(slots)
+        h["ports"].sub_(used[:n])
+        lo += n
     return (res.cons_idx, res.cons_host, res.head_matched, res.n_matched,
             res.n_considerable, res.mat_idx, res.mat_host,
             res.why_idx, res.why_code, res.why_amt)
 
 
-def state_to_device(state_np, device) -> dict:
+def state_to_device(state_np, device, shard_devices=None) -> dict:
     """Device state from numpy lanes in the reference's layout (no sink
-    slot): every lane / row block gets its sink slot appended."""
+    slot): every lane / row block gets its sink slot appended. With
+    `shard_devices`, the host axis is split into that many contiguous
+    blocks, one on each device (the sharded layout above)."""
     dev = resolve_device(device)
 
-    def lane(a):
+    def lane(a, d=dev):
         a = np.asarray(a)
         sink = np.zeros((1,) + a.shape[1:], a.dtype)
-        return torch.from_numpy(np.concatenate([a, sink])).to(dev)
+        return torch.from_numpy(np.concatenate([a, sink])).to(d)
 
-    return {
+    state = {
         "pend": {k: lane(v) for k, v in state_np["pend"].items()},
         "run": {k: lane(v) for k, v in state_np["run"].items()},
-        "host": {k: lane(v) for k, v in state_np["host"].items()},
-        "forb": lane(state_np["forb"]),
-        "bonus": lane(state_np["bonus"]),
     }
+    if shard_devices is None:
+        state["host"] = {k: lane(v) for k, v in state_np["host"].items()}
+        state["forb"] = lane(state_np["forb"])
+        state["bonus"] = lane(state_np["bonus"])
+        return state
+    n = len(state_np["host"]["mem"]) // len(shard_devices)
+    cols = [(slice(s * n, (s + 1) * n), d)
+            for s, d in enumerate(shard_devices)]
+    state["host"] = [{k: lane(np.asarray(v)[sl], d)
+                      for k, v in state_np["host"].items()}
+                     for sl, d in cols]
+    for k in ("forb", "bonus"):
+        state[k] = [lane(np.asarray(state_np[k])[:, sl], d)
+                    for sl, d in cols]
+    return state
 
 
 def state_to_numpy(state) -> dict:
-    """The reference's layout (sink slots dropped), as numpy arrays."""
+    """The reference's layout (sink slots dropped), as numpy arrays; a
+    sharded state's blocks joined along the host axis."""
     def a(t):
         return t[:-1].cpu().numpy()
 
-    return {
+    out = {
         "pend": {k: a(v) for k, v in state["pend"].items()},
         "run": {k: a(v) for k, v in state["run"].items()},
-        "host": {k: a(v) for k, v in state["host"].items()},
-        "forb": a(state["forb"]),
-        "bonus": a(state["bonus"]),
     }
+    host = state["host"]
+    if not isinstance(host, list):
+        out["host"] = {k: a(v) for k, v in host.items()}
+        out["forb"] = a(state["forb"])
+        out["bonus"] = a(state["bonus"])
+        return out
+    out["host"] = {k: np.concatenate([a(h[k]) for h in host])
+                   for k in host[0]}
+    for k in ("forb", "bonus"):
+        out[k] = np.concatenate([a(b) for b in state[k]], axis=1)
+    return out
 
 
 class DeltaPacking:
@@ -360,11 +455,11 @@ class DeltaPacking:
     def run_cycle(self, bundle, qm, qc, qn, considerable_limit: int,
                   now_s: int, num_considerable: int, num_groups: int = 1,
                   dru_mode: str = "default", use_kernel: bool = True,
-                  sequential: bool = True, match_kw=None):
+                  sequential: bool = True, match_kw=None, matcher=None):
         """One `device_cycle` on the device state (the sequential match,
-        or `match_rounds` with `match_kw` when `sequential` is False),
-        with this state's bonus and estimated-completion lanes. Returns
-        its output tuple."""
+        or `match_rounds` with `match_kw` when `sequential` is False, or
+        `matcher`), with this state's bonus and estimated-completion
+        lanes. Returns its output tuple."""
         dev = self.device
         return device_cycle(
             self.state, bundle, to_device(qm, dev), to_device(qc, dev),
@@ -372,7 +467,7 @@ class DeltaPacking:
             num_considerable=num_considerable, sequential=sequential,
             num_groups=int(num_groups), dru_mode=dru_mode,
             use_kernel=use_kernel, with_bonus=self.with_bonus,
-            with_est=self.with_est, match_kw=match_kw)
+            with_est=self.with_est, matcher=matcher, match_kw=match_kw)
 
 
 class ResidentState(DeltaPacking):
@@ -616,7 +711,8 @@ class ResidentPool(DeltaPacking):
             else getattr(coordinator, "device", "cuda"))
         # ONE pool spanning MANY chips (VERDICT r5 #2): `devices` shards
         # the pool's HOST axis over a mesh — host/forb/bonus tensors
-        # live sharded, pend/run replicate, and the match runs the
+        # live in per-shard blocks on their devices, pend/run (and the
+        # cycle's outputs) on the first, and the match runs the
         # distributed scan (parallel/sharded_match: shard-local
         # score + pmax/pmin argmax + shard-local depletion, unique
         # host-placement groups included). Opt in for pools whose host
@@ -625,10 +721,8 @@ class ResidentPool(DeltaPacking):
         if devices is not None and len(devices) > 1:
             if device is not None:
                 raise ValueError("pass device= or devices=, not both")
-            raise NotImplementedError(
-                "a pool sharded over several devices (devices=) is not "
-                "ported yet: it needs the host-sharded scan of "
-                "parallel/sharded_match.py (ROADMAP Queue A, parallel/*)")
+            self.mesh = Mesh(list(devices), (HOST_AXIS,))
+            self.device = self.mesh.devices.flat[0]
         # per-cycle launch plugins run against the COMPACT readback at
         # consume time (the reference filters considerables,
         # plugins/launch.clj:59-121 — the readback loop is the same
@@ -743,6 +837,10 @@ class ResidentPool(DeltaPacking):
         self._build_count = getattr(self, "_build_count", 0) + 1
         self.host_attrs = [o.attributes for o in offers]
         H = max(bucket(len(offers)), 64)
+        if self.mesh is not None:
+            # the host axis shards evenly over the mesh
+            D = self.mesh.devices.size
+            H = ((H + D - 1) // D) * D
         self.Hcap = H
         hostd = {
             "mem": np.zeros(H, np.float32),
@@ -851,10 +949,14 @@ class ResidentPool(DeltaPacking):
             "host": hostd,
             "forb": self._forb_rows_m,
             "bonus": self._bonus_rows_m,
-        }, self.device)
+        }, self.device, None if self.mesh is None
+            else list(self.mesh.devices.flat))
         # a background rebuild uploads on its builder thread: the swap
-        # waits on this event before the cycle thread uses the state
-        self._upload_event = _record_event(self.device)
+        # waits on these events before the cycle thread uses the state
+        devs = ([self.device] if self.mesh is None
+                else dict.fromkeys(self.mesh.devices.flat))
+        self._upload_events = [e for e in map(_record_event, devs)
+                               if e is not None]
         self._dirty_pend: set[int] = set()
         self._dirty_forb: set[int] = set()
         self._dirty_bonus: set[int] = set()
@@ -1552,10 +1654,16 @@ class ResidentPool(DeltaPacking):
         num_groups = (1 if not self._group_ids
                       else bucket(len(self._group_ids)))
         now_s = np.int32((time.time() * 1000.0 - self._t0_ms) / 1000.0)
+        matcher = None
+        if self.mesh is not None:
+            # the host-sharded distributed scan, one cached matcher per
+            # (mesh, num_groups, bonus)
+            matcher = resident_matcher(self.mesh, int(num_groups),
+                                       self.with_bonus)
         out = self.run_cycle(
             bundle, qm, qc, qn, considerable_limit, now_s, num_considerable,
             num_groups=num_groups, dru_mode=dru_mode, sequential=sequential,
-            match_kw=match_kw)
+            match_kw=match_kw, matcher=matcher)
         co = _CycleOut(self.cycle_no, *out, t_dispatch=time.perf_counter())
         # ASYNC and PIPELINED modes: start the device->host copy of the
         # scalars and the matched prefix NOW, into this cycle's own
@@ -1807,7 +1915,9 @@ class ResidentPool(DeltaPacking):
                     resync_interval=self.resync_interval,
                     full_resync_every=self.full_resync_every,
                     locality_refresh_cycles=self.locality_refresh_cycles,
-                    device=self.device)
+                    device=self.device if self.mesh is None else None,
+                    devices=(list(self.mesh.devices.flat)
+                             if self.mesh is not None else None))
                 hook = self._bg_build_hook
                 if hook is not None:   # test seam: hold the build open
                     hook(shadow)
@@ -1852,9 +1962,9 @@ class ResidentPool(DeltaPacking):
                 log.warning("background rebuild failed: %s", bg["err"])
             return False
         shadow = bg["shadow"]
-        if shadow._upload_event is not None:
+        for ev in shadow._upload_events:
             # the shadow's state was uploaded on the builder thread
-            shadow._upload_event.synchronize()
+            ev.synchronize()
         self.last_build_ms = bg["build_ms"]
         assert not self._inflight, "swap with cycles in flight"
         with self.mirror_lock:

@@ -2,8 +2,9 @@
 
 * a process running the port (the entry points, a Coordinator with a
   resident pool that runs cycles and the rebalancer, the server built by
-  `rest.server.build_scheduler` taking a job through its API, and the
-  simulator) never imports jax nor any cook_tpu module;
+  `rest.server.build_scheduler` taking a job through its API, the
+  simulator, and the mesh paths of `entry.dryrun_multichip`) never
+  imports jax nor any cook_tpu module;
 * no file of the port, nor chip_smoke.py nor bench_torch.py, imports jax
   or cook_tpu, and bench_torch.py runs on the CPU without them;
 * entry points default to CUDA and raise when it is absent;
@@ -12,8 +13,10 @@
   cluster exact_scan at its edge shapes; best_host at its tiling's
   edges; blocked_cumsum and ordered_scatter bit for bit and from run to
   run); the batched matcher's host depletion, through ordered_scatter,
-  is bit-reproducible there and equal to the CPU's (needs the card;
-  skipped without one).
+  is bit-reproducible there and equal to the CPU's; the host-sharded
+  scan and the pool-sharded cycle on four shards of one card equal the
+  one-device scan and the CPU path (needs the card; skipped without
+  one).
 """
 import ast
 import json
@@ -85,6 +88,8 @@ sim = Simulator(parse_trace(generate_trace(n_jobs=20, n_users=2, seed=0)),
                 parse_hosts(generate_hosts(n_hosts=3)),
                 SimConfig(cycle_step_ms=10_000), device="cpu")
 assert sim.run()["completed"] == 20
+from cook_tpu_torch.entry import dryrun_multichip
+dryrun_multichip(4, device="cpu", devices=["cpu"] * 4)
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"
              or n == "cook_tpu" or n.startswith("cook_tpu."))
@@ -145,6 +150,8 @@ BENCH_TOY = {
                    "--C", "128", "--cycles", "3"],
     "e2e": ["--P0", "1500", "--H", "60", "--U", "12", "--cycles", "3",
             "--warmup", "1"],
+    "pools": ["--R", "40", "--P", "200", "--H", "32", "--U", "4", "--C",
+              "64", "--cycles", "2"],
 }
 
 
@@ -177,6 +184,14 @@ def test_bench_torch_runs_on_cpu_without_jax(mode):
                 "launch_txn_ms", "backend_launch_ms"} <= set(
                     out["phase_median_ms"])
         assert out["cycles"] == 3 and out["sequential"]
+        assert out["launches_per_cycle"] is None
+    elif mode == "pools":
+        for k in ("value", "cycle_ms_median", "p99_cycle_ms",
+                  "matched_per_cycle"):
+            assert out[k] is not None, k
+        assert out["matched_per_cycle"] > 0
+        assert out["shape"]["n_pools"] == 8
+        assert out["event_ms_p99"] is None
         assert out["launches_per_cycle"] is None
     else:
         for k in ("value", "cycle_ms_median", "cycle_ms_iqr",
@@ -649,3 +664,56 @@ def test_ordered_scatter_edges_on_cuda():
         assert fm.LAUNCHES[route] == before + 2, label
         assert torch.equal(bits(first), bits(want)), label
         assert torch.equal(bits(first), bits(second)), label
+
+
+@pytest.mark.cuda
+def test_sharded_scan_on_cuda_equals_exact_scan_without_step_syncs():
+    """Four shards of one card: the host-sharded scan gives match_scan's
+    (the exact_scan kernel's) job_host and bit-equal lanes, and reads the
+    device once a call (the jobs' flags before the loop), never in a
+    step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    from cook_tpu_torch.ops import match
+    from cook_tpu_torch.parallel import sharded_match
+    from cook_tpu_torch.profile_cycle import sync_sources
+
+    dev = torch.device("cuda")
+    jobs, hosts, forb, _ = chip_smoke.par_scan_problem(
+        np.random.default_rng(6), 256, 1000, dev)
+    scan = sharded_match.sharded_match_scan(
+        sharded_match.make_host_mesh(devices=[dev] * 4))
+    want = match.match_scan(jobs, hosts, forb, use_kernel=True)
+    got = []
+    syncs = sync_sources(lambda: got.append(scan(jobs, hosts, forb)))
+    assert sum(syncs.values()) == 1, syncs
+    assert list(syncs)[0].startswith(
+        "cook_tpu_torch/parallel/sharded_match.py:"), syncs
+    chip_smoke.check_sharded_scan(got[0], want, "cuda test")
+
+
+@pytest.mark.cuda
+def test_pool_sharded_cycle_on_cuda_equals_cpu():
+    """The pool-sharded cycle on four shards of one card equals the same
+    cycle on the CPU (the plain versions), every CycleResult field."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cook_tpu_torch.entry import pool_cycle_args
+    from cook_tpu_torch.ops import cycle
+    from cook_tpu_torch.parallel import pools
+
+    dev = torch.device("cuda")
+    kw = dict(num_considerable=256, sequential=False)
+    got = pools.pool_sharded_cycle(pools.make_pool_mesh(devices=[dev] * 4),
+                                   **kw)(pool_cycle_args(
+                                       4, R=300, Pn=1500, H=192, U=12,
+                                       device=dev))
+    want = pools.pool_sharded_cycle(pools.make_pool_mesh(device="cpu"),
+                                    **kw)(pool_cycle_args(
+                                        4, R=300, Pn=1500, H=192, U=12,
+                                        device="cpu"))
+    for f in cycle.CycleResult._fields:
+        assert torch.equal(getattr(got.result, f).cpu(),
+                           getattr(want.result, f)), f
+    assert int(got.stats.total_matched) == int(want.stats.total_matched) > 0

@@ -267,10 +267,36 @@ def sc_host_add_remove(t):
     _rebuild_check(t, coord)
 
 
-def sc_background_rebuild(t):
+def _mesh_devices(t, n=8):
+    """n shards: the JAX package's first n (virtual CPU) devices, the
+    port's CPU device listed n times."""
+    if t.pkg.torch:
+        import torch
+        return [torch.device("cpu")] * n
+    import jax
+    return jax.devices()[:n]
+
+
+def _assert_sharded(t, rp, n=8):
+    """The pool's host tensors really shard: n blocks, each on its own
+    shard's device (the port), or spread over n devices (JAX)."""
+    if t.pkg.torch:
+        shards = list(rp.mesh.devices.flat)
+        assert len(shards) == n
+        for k in ("forb", "bonus"):
+            assert [b.device for b in rp.state[k]] == shards
+        assert [h["mem"].device for h in rp.state["host"]] == shards
+        assert all(h[f].device == d for h, d in zip(rp.state["host"], shards)
+                   for f in h)
+    else:
+        assert len(rp.state["host"]["mem"].sharding.device_set) == n
+
+
+def _background_rebuild(t, devices=None):
     store, cluster, coord = t.build(n_hosts=4)
     coord.enable_resident(synchronous=True, background_rebuild=True,
-                          resync_interval=4, full_resync_every=1)
+                          resync_interval=4, full_resync_every=1,
+                          devices=devices)
     rp = coord._resident["default"]
     gate, entered = threading.Event(), threading.Event()
 
@@ -304,6 +330,51 @@ def sc_background_rebuild(t):
     _rebuild_check(t, coord)
 
 
+def sc_background_rebuild(t):
+    _background_rebuild(t)
+
+
+def sc_background_rebuild_sharded(t):
+    """The background rebuild of a pool sharded over 8 devices: the
+    shadow is built sharded the same way and swapped in."""
+    _background_rebuild(t, _mesh_devices(t))
+    _assert_sharded(t, t.coords[-1]._resident["default"])
+
+
+def sc_sharded_pool(t):
+    """tests/test_resident.py::
+    test_sharded_resident_pool_equals_single_device_oracle: ONE pool's
+    host axis sharded over 8 devices launches what the single-device
+    pool launches, unique-host groups included, and keeps scheduling
+    across completions."""
+    def scenario(coord, store):
+        g = t.group(name="g", host_placement={"type": "unique"})
+        jobs = [t.mkjob(user=f"u{i % 3}", mem=50 + 10 * (i % 5),
+                        cpus=1 + (i % 3)) for i in range(24)]
+        gjobs = [t.mkjob(group=g.uuid) for _ in range(4)]
+        store.create_jobs(jobs + gjobs, groups=[g])
+        t.cycle(coord)
+        return jobs + gjobs, gjobs
+
+    store_a, _, coord_a = t.build(n_hosts=6)
+    coord_a.enable_resident()
+    all_a, _ = scenario(coord_a, store_a)
+    hosts_a = sorted(j.instances[0].hostname for j in all_a if j.instances)
+
+    store_b, cluster_b, coord_b = t.build(n_hosts=6)
+    coord_b.enable_resident(devices=_mesh_devices(t))
+    all_b, gjobs_b = scenario(coord_b, store_b)
+    hosts_b = sorted(j.instances[0].hostname for j in all_b if j.instances)
+    assert hosts_a == hosts_b
+    gh = [j.instances[0].hostname for j in gjobs_b if j.instances]
+    assert len(gh) == len(set(gh)), gh   # unique placement held
+    t.note(hosts_b, gh)
+    cluster_b.advance(200.0)
+    t.cycle(coord_b)
+    _rebuild_check(t, coord_b)
+    _assert_sharded(t, coord_b._resident["default"])
+
+
 def sc_batched_resident(t):
     """The resident batched cycle (match_rounds), which the e2e bench
     takes at consider=8192."""
@@ -327,17 +398,6 @@ SCENARIOS = {name[3:]: fn for name, fn in sorted(globals().items())
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
 def test_resident_pool_parity(name):
     assert_parity(SCENARIOS[name])
-
-
-def test_sharded_pool_is_not_ported_yet():
-    """A pool sharded over several devices raises, naming what is
-    missing, rather than running unsharded."""
-    from tests.torch_coord_harness import Sim, package
-    t = Sim(package("cook_tpu_torch"))
-    _, _, coord = t.build()
-    with pytest.raises(NotImplementedError, match="sharded"):
-        coord.enable_resident(devices=["cpu", "cpu"])
-    t.stop()
 
 
 def test_pools_pinned_per_device():

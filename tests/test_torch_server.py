@@ -279,6 +279,32 @@ def test_shard_claim_beyond_the_visible_devices_runs_on_one(caplog):
         coord.stop()
 
 
+def test_shard_claim_the_visible_devices_meet_runs_sharded(monkeypatch):
+    """A claim the visible devices meet gives every pool a working
+    sharded resident pool (two CPU shards stand in for two cards)."""
+    import torch
+    from cook_tpu_torch.rest import server
+    monkeypatch.setattr(server, "_devices",
+                        lambda device, n: [torch.device("cpu")] * n)
+    store, coord, api = server.build_scheduler(
+        config(scheduler={"resident_shard_devices": 2}), device="cpu")
+    try:
+        for p in POOLS:
+            rp = coord._resident[p]
+            assert rp.mesh is not None and rp.mesh.devices.size == 2
+            assert len(rp.state["host"]) == 2
+        resp = api.handle("POST", "/jobs", {}, {"jobs": [
+            {"uuid": str(uuid.uuid4()), "command": "true", "mem": 64,
+             "cpus": 1}]}, {"x-cook-user": "alice"})
+        assert resp.status == 201
+        coord.match_cycle("default")
+        coord.drain_resident("default")
+        assert len(store.running_instances("default")) == 1
+    finally:
+        api.ingest.stop()
+        coord.stop()
+
+
 def test_federation_placement_falls_back_to_the_coordinator_device(caplog):
     from cook_tpu_torch.rest.server import build_scheduler
     fed = {"group": "g0", "groups": {"g0": {
