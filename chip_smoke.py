@@ -15,7 +15,9 @@
      (beyond the 65,536 on-chip hosts)}; one host taking all 256 jobs
      (each step must see the last step's depletion, made by one CTA);
      256 unique-group jobs against 30% occupied hosts; all hosts
-     identical, all jobs infeasible, H = 16411 (plain mask loads).
+     identical, all jobs infeasible, H = 16411 (plain mask loads);
+     operands beyond [2^-60, 2^60] and a value off the 2^-60 grid (the
+     kernel's `__fdiv_rn` route), negative used on the grid.
      job_host must be equal and the (16, H) host stack bit-equal.
    - blocked_cumsum (the port's f32 prefix sum in XLA-CPU's
      association; it replaces no TPU kernel) at (262144, 2), (131072, 2)
@@ -59,6 +61,20 @@
      shapes beyond the one-launch route): bit-equal to its plain version
      and across two runs; the longest run of each is printed; the
      one-launch and the sorted route's counters must both move.
+   - exact_scan's other routes (the reference's XLA scan with a bonus,
+     with G groups, with both): S=1024 x H=16384 with a U(0, 0.3) bonus
+     (one group) and with G in {4, 64, 2048} groups (half the jobs
+     unique, half the ids among 8 groups, 5% occupied on entry), with and
+     without a bonus; the edges: one job, S = 257 and 513 (past the bonus
+     route's 256-row job tile), every host on chip and 16 a CTA beyond,
+     H = 16411 and a bonus 4 bytes off a 16-byte boundary (plain loads),
+     S = 256 x H = 100,000 with 64 groups and a bonus, all jobs unique
+     in one group. job_host must be equal, the host stack and the (G, H)
+     occupancy bit-equal, and no unique group may share a host. Then
+     best_host with G = 2,048 groups at D=1024 x H=16384, with and
+     without a bonus and the jitter, ragged N = 33 x H = 515 and
+     N = 200 x H = 16411, and an occupancy 1 byte off a 16-byte boundary
+     (byte loads): best_host equal, best_fit bit-equal.
    All kernels round every f32 op like their plain versions (no FMA
    contraction, IEEE division).
 4. The sequential path: a device-resident pool of 100,000 pending x
@@ -90,6 +106,20 @@
    BATCHED_REPLAY cycles are replayed the same way, match_rounds then
    running every kernel's plain version: mat_idx, mat_host and why_code
    must be equal and no kernel counter may move.
+5b. The grouped and locality cells: the deployment of 4 and 5 with 10%
+   of pending jobs in host-placement-unique groups of 8 (Spark
+   executors; num_groups = bucket(groups seen) = 2,048, then 4,096) or
+   20% with a data-locality bonus row (U(0, 0.3) on 3 hosts), at C =
+   1,024 and 8,192. GROUP_AGREE cycle(s) must equal the same on the
+   CPU path (mat_idx, mat_host, why_code); then GROUP_TIMED cycles after
+   GROUP_WARMUP, each launching the walk once on its route
+   (exact_scan/groups or exact_scan/bonus) and best_host on its route
+   once a dense round, no other match route; prints event and host-clock
+   p50 / p99, matched and the match launches a cycle, launches and host
+   syncs of one profiled cycle, and GROUP_PLAIN cycles of the plain route
+   (use_kernel=False: `_scan_assign` and the plain dense expression,
+   the route these cells took before the kernels covered groups and a
+   bonus), which must launch no match kernel.
 6. The rebalancer (ops/rebalance.py) at bench.py `bench_rebalance`'s
    shape (BASELINE config 4: T0 = 50,000 running tasks, P = 64
    preemption decisions, H = 2,000 hosts, U = 500 users, safe DRU 0.5,
@@ -186,7 +216,7 @@
      H = 10,000 hosts (2,500 a shard): without groups, job_host equal to
      match_scan's (one exact_scan launch) and every lane bit-equal; with
      4 unique groups, 10% forbidden pairs and a U(0, 0.5) bonus, equal
-     to match_scan's plain walk (no kernel launches) and no group
+     to match_scan's (one exact_scan/groups launch) and no group
      sharing a host;
    - the pool-sharded cycle (parallel.pools) at bench.py::bench_pools'
      shape, 8 pools x (R = 1,250, P = 12,500, H = 1,250, U = 100, C =
@@ -311,6 +341,15 @@ PAR_SCAN_C, PAR_SCAN_H, PAR_GROUPS = 1024, 10_000, 4
 PAR_POOLS = dict(n_pools=8, R=1_250, P=12_500, H=1_250, U=100, C=1_024)
 PAR_RESIDENT_CYCLES = 4
 PAR_TIMED = 3
+# the grouped and locality cells: the headline deployment with 10% of
+# pending jobs in host-placement-unique groups of 8 (Spark executors;
+# G = bucket(~1,250 groups) = 2,048) or 20% with a data-locality bonus
+# row, at C = 1,024 and 8,192; cycles held against the CPU path, timed
+# after warm-up, and on the plain route; the walk's groups counts
+GROUP_CELLS = (("grouped", {"groups": (0.1, 8)}),
+               ("locality", {"locality": 0.2}))
+GROUP_AGREE, GROUP_WARMUP, GROUP_TIMED, GROUP_PLAIN = 1, 2, 20, 2
+GROUP_G = (4, 64, 2048)
 
 
 T_START = time.perf_counter()
@@ -418,14 +457,14 @@ def check_kernel(jp, hp, forb, label):
     return float((hout_k - hout_p).abs().max()), int((jh_k >= 0).sum())
 
 
-def check_best_host(jp, hp, forb, bonus, spread, label):
+def check_best_host(jp, hp, forb, bonus, spread, label, occ=None):
     """best_host vs plain on the same inputs; returns (max |fit diff|,
     rows assigned, best_host)."""
     import torch
     from cook_tpu_torch.ops import fused_match as fm
 
-    fit_k, idx_k = fm.best_host(jp, hp, forb, bonus, spread)
-    fit_p, idx_p = fm.best_host_plain(jp, hp, forb, bonus, spread)
+    fit_k, idx_k = fm.best_host(jp, hp, forb, bonus, spread, occ=occ)
+    fit_p, idx_p = fm.best_host_plain(jp, hp, forb, bonus, spread, occ=occ)
     torch.cuda.synchronize()
     if not torch.equal(idx_k, idx_p):
         bad = int((idx_k != idx_p).sum())
@@ -461,7 +500,12 @@ def adversarial(device, cluster):
     at S in {8, 256} x H in {1, 33, cluster x 32 (one warp of hosts per
     CTA), 100,000 (beyond the on-chip capacity)}; one host taking every
     job; unique jobs against occupied hosts; all hosts identical; all
-    jobs infeasible; H = 16411 (not a multiple of 16: plain mask loads)."""
+    jobs infeasible; H = 16411 (not a multiple of 16: plain mask loads);
+    operands beyond [2^-60, 2^60] (negative used, huge and tiny
+    capacities, no capacity with memory free, tiny and huge demands: the
+    kernel's `__fdiv_rn` beside its reciprocal-and-correction division);
+    negative used on the 2^-60 grid (the reciprocal route with dividends
+    of both signs); one valid host off the grid (the exact route)."""
     import torch
     from cook_tpu_torch.ops import fused_match as fm
 
@@ -494,6 +538,31 @@ def adversarial(device, cluster):
     # H not a multiple of 1024 (nor of 16)
     jp3, hp3, forb3 = scan_problem(rng, 200, 16411, device)
     out.append(("h16411", jp3, hp3, forb3))
+    # used < 0 (free memory above the capacity), capacities of 3 x 2^61
+    # and 3 x 2^-62, a host without memory capacity but with memory; jobs
+    # demanding 1e-20 memory or 3 x 2^59 cpus
+    jp4, hp4, forb4 = scan_problem(rng, 256, 2048, device)
+    for h, lane, v in ((130, fm.H_MEM, 300.0),
+                       (400, fm.H_CAP_MEM, 3 * 2.0 ** 61),
+                       (400, fm.H_MEM, 3 * 2.0 ** 61),
+                       (700, fm.H_CAP_CPUS, 3 * 2.0 ** -62),
+                       (900, fm.H_CAP_MEM, 0.0),
+                       (900, fm.H_MEM, 50.0)):
+        hp4[lane, h] = v
+    jp4[1::2, fm.J_MEM] = 1e-20
+    jp4[1::4, fm.J_CPUS] = 3 * 2.0 ** 59
+    out.append(("wide_operands", jp4, hp4, forb4))
+    # free amounts above the capacity (used < 0: dividends of both signs)
+    # on the 2^-60 grid, so the launch divides by the reciprocal alone;
+    # then one valid host's memory off the grid (1e-13): the exact route
+    jp5, hp5, forb5 = scan_problem(rng, 256, 4096, device)
+    hp5[fm.H_MEM, ::7] = hp5[fm.H_CAP_MEM, ::7] * 1.5
+    hp5[fm.H_CPUS, ::5] = hp5[fm.H_CAP_CPUS, ::5] * 1.25
+    out.append(("used_negative", jp5, hp5, forb5))
+    jp6, hp6, forb6 = scan_problem(rng, 256, 4096, device)
+    hp6[fm.H_MEM, 17] = 1e-13
+    hp6[fm.H_VALID, 17] = 1.0
+    out.append(("off_grid", jp6, hp6, forb6))
     return out
 
 
@@ -577,6 +646,315 @@ def check_best_host_edge(label, idx):
         fail("best_host tie_tiles: host 700 did not win the tie")
     if label == "neg_bonus" and bool((idx[:128] >= 0).any()):
         fail("best_host neg_bonus: a fit <= -1.0 was chosen")
+
+
+def group_problem(rng, S, H, G, with_bonus, device):
+    """scan_problem's mix for the walk's and the dense round's other
+    routes: with G > 1 groups half the jobs unique, half of the group ids
+    among 8 groups (so a walk's own placements exclude hosts) and the
+    rest in -1..G+1 (clipped in use), 5% of each group's hosts occupied
+    on entry; with `with_bonus` a U(0, 0.3) (S, H) bonus. Returns (jp,
+    hp, forb, occ or None, bonus or None)."""
+    import torch
+    from cook_tpu_torch.ops import fused_match as fm
+
+    jp, hp, forb = scan_problem(rng, S, H, device)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    occ = None
+    if G > 1:
+        ids = np.where(rng.random(S) < 0.5, rng.integers(0, 8, S),
+                       rng.integers(-1, G + 2, S))
+        jp[:, fm.J_GROUP] = t(ids.astype(np.float32))
+        jp[:, fm.J_UNIQUE] = t((rng.random(S) < 0.5).astype(np.float32))
+        occ = t(rng.random((G, H), dtype=np.float32) < 0.05)
+    bonus = (t(rng.uniform(0, 0.3, (S, H)).astype(np.float32))
+             if with_bonus else None)
+    return jp, hp, forb, occ, bonus
+
+
+def misaligned(x, offset_bytes):
+    """A contiguous copy of x whose storage starts `offset_bytes` past a
+    16-byte boundary (the kernels then take plain loads)."""
+    import torch
+    n = x.numel() * x.element_size()
+    buf = torch.empty(n + 16, dtype=torch.uint8, device=x.device)
+    out = buf[offset_bytes:offset_bytes + n].view(x.dtype).view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def check_scan_route(jp, hp, forb, occ, bonus, label):
+    """exact_scan vs its plain version on one route's inputs: job_host
+    equal, the host stack and the occupancy bit-equal, and no unique job
+    on a host its group held before it. Returns (max |lane diff|, jobs
+    assigned)."""
+    import torch
+    from cook_tpu_torch.ops import fused_match as fm
+
+    got = fm.exact_scan(jp, hp, forb, occ=occ, bonus=bonus)
+    want = fm.exact_scan_plain(jp, hp, forb, occ=occ, bonus=bonus)
+    torch.cuda.synchronize()
+    if not torch.equal(got[0], want[0]):
+        bad = int((got[0] != want[0]).sum())
+        fail(f"exact_scan {label}: job_host differs from plain at {bad} "
+             f"jobs")
+    if not torch.equal(got[1].view(torch.int32), want[1].view(torch.int32)):
+        fail(f"exact_scan {label}: host stack not bit-equal to plain "
+             f"(max abs diff {float((got[1] - want[1]).abs().max())})")
+    if occ is not None:
+        if not torch.equal(got[2], want[2]):
+            fail(f"exact_scan {label}: occupancy differs from plain")
+        jh = got[0].cpu().numpy()
+        j = jp.cpu().numpy()
+        uniq = (j[:, fm.J_UNIQUE] > 0) & (jh >= 0)
+        g = np.clip(j[:, fm.J_GROUP], 0, occ.shape[0] - 1).astype(np.int64)
+        pairs = list(zip(g[uniq].tolist(), jh[uniq].tolist()))
+        if len(set(pairs)) != len(pairs) or bool(occ.cpu().numpy()[
+                g[uniq], jh[uniq]].any()):
+            fail(f"exact_scan {label}: a unique group shares a host")
+    return float((got[1] - want[1]).abs().max()), int((got[0] >= 0).sum())
+
+
+def scan_route_edges(device, cluster):
+    """(label, S, H, G, with_bonus, misaligned bonus) of the walk's other
+    routes at their edges: one job (the ring never fills); S past the
+    bonus route's 256-row job tile once and twice; every host on chip
+    (H = cluster x 4,096) and 16 a CTA beyond; H = 16411 (plain mask and
+    bonus loads); a bonus 4 bytes off a 16-byte boundary (plain loads at
+    H % 16 = 0); S = 256 x H = 100,000 past the 65,536 on-chip hosts with
+    64 groups and a bonus; and all jobs unique in one group."""
+    cap = cluster * 4096
+    return [("bonus_s1", 1, H_MAIN, 1, True, False),
+            ("groups_bonus_s257", 257, 4096, 64, True, False),
+            ("groups_bonus_s513_all_on_chip", 513, cap, 4, True, False),
+            ("bonus_beyond_cap", 64, cap + cluster * 16, 1, True, False),
+            ("groups_beyond_cap", 64, cap + cluster * 16, 64, False, False),
+            ("groups_bonus_h16411", 200, 16411, 64, True, False),
+            ("bonus_misaligned", 128, H_MAIN, 1, True, True),
+            ("groups_bonus_h100000", 256, 100_000, 64, True, False),
+            ("one_unique_group", 256, 4096, 4, False, False)]
+
+
+def group_routes(dev, cluster):
+    """2d: exact_scan's bonus and groups routes and best_host's groups
+    route against their plain versions on the card (module docstring),
+    then their times at the main shapes. Returns the stats."""
+    import torch
+    from cook_tpu_torch.ops import fused_match as fm
+
+    rng = np.random.default_rng(21)
+    S, H = S_MAIN, H_MAIN
+    scan_err, assigned, main = 0.0, {}, {}
+    for G in (1,) + GROUP_G:
+        for with_bonus in ((True,) if G == 1 else (False, True)):
+            label = f"g{G}" + ("_bonus" if with_bonus else "")
+            args = group_problem(rng, S, H, G, with_bonus, dev)
+            err, assigned[label] = check_scan_route(*args, label)
+            scan_err = max(scan_err, err)
+            main[label] = args
+    for label, S_, H_, G, with_bonus, off in scan_route_edges(dev, cluster):
+        jp, hp, forb, occ, bonus = group_problem(rng, S_, H_, G, with_bonus,
+                                                 dev)
+        if label == "one_unique_group":
+            jp[:, fm.J_UNIQUE] = 1.0
+            jp[:, fm.J_GROUP] = 2.0
+            jp[:, fm.J_ACTIVE] = 1.0
+        if off:
+            bonus = misaligned(bonus, 4)
+        err, assigned[label] = check_scan_route(jp, hp, forb, occ, bonus,
+                                                label)
+        scan_err = max(scan_err, err)
+    if assigned["one_unique_group"] < 64:
+        fail(f"one_unique_group: {assigned['one_unique_group']} placed")
+    print(json.dumps({"exact_scan_routes_vs_plain": "bit-equal",
+                      "max_abs_err": scan_err, "assigned": assigned}),
+          flush=True)
+
+    # best_host with G groups: D rows x H hosts at G = 2,048
+    D, Gm = D_MAIN, GROUP_G[-1]
+    jp, hp, forb, occ, bonus = group_problem(rng, D, H, Gm, True, dev)
+    bh_err = 0.0
+    for b, spread, label in ((None, 0.2, "groups spread 0.2"),
+                             (None, 0.0, "groups spread 0"),
+                             (bonus, 0.0, "groups bonus spread 0"),
+                             (bonus, 0.2, "groups bonus spread 0.2")):
+        err, n, _ = check_best_host(jp, hp, forb, b, spread, label,
+                                    occ=occ)
+        bh_err = max(bh_err, err)
+        if n == 0:
+            fail(f"best_host {label}: no row found a host")
+    for label, N_, H_, G, with_bonus in (("groups_n33_h515", 33, 515, 64,
+                                          True),
+                                         ("groups_n200_h16411", 200, 16411,
+                                          64, False),
+                                         ("groups_occ_misaligned", 256, H,
+                                          64, True)):
+        a, b, c, o, bb = group_problem(rng, N_, H_, G, with_bonus, dev)
+        if label == "groups_occ_misaligned":
+            o = misaligned(o, 1)
+        err, _, _ = check_best_host(a, b, c, bb, 0.2, label, occ=o)
+        bh_err = max(bh_err, err)
+    print(json.dumps({"best_host_groups_vs_plain": "equal",
+                      "max_abs_err": bh_err}), flush=True)
+
+    # times at the main shapes: S = 1,024 / D = 1,024 x H = 16,384
+    out = {"scan_err": scan_err, "best_host_err": bh_err}
+    jb = main["g1_bonus"]
+    jg = main[f"g{Gm}"]
+    jgb = main[f"g{Gm}_bonus"]
+    out["exact_scan_bonus_ms"] = cuda_ms(
+        lambda: fm.exact_scan(jb[0], jb[1], jb[2], bonus=jb[4]), 20)
+    out["exact_scan_bonus_plain_ms"] = cuda_ms(
+        lambda: fm.exact_scan_plain(jb[0], jb[1], jb[2], bonus=jb[4]), 1)
+    out["exact_scan_groups_ms"] = cuda_ms(
+        lambda: fm.exact_scan(jg[0], jg[1], jg[2], occ=jg[3]), 20)
+    out["exact_scan_groups_bonus_ms"] = cuda_ms(
+        lambda: fm.exact_scan(*jgb[:3], occ=jgb[3], bonus=jgb[4]), 20)
+    out["exact_scan_groups_plain_ms"] = cuda_ms(
+        lambda: fm.exact_scan_plain(jg[0], jg[1], jg[2], occ=jg[3]), 1)
+    # the groups route's and the bonus route's chain floors: the same S
+    # steps with one warp of hosts a CTA
+    fb = group_problem(np.random.default_rng(4), S, cluster * 32, 1, True,
+                       dev)
+    check_scan_route(*fb, "bonus chain floor")
+    out["exact_scan_bonus_chain_floor_ms"] = cuda_ms(
+        lambda: fm.exact_scan(*fb[:3], bonus=fb[4]), 20)
+    fg = group_problem(np.random.default_rng(4), S, cluster * 32, Gm, True,
+                       dev)
+    check_scan_route(*fg, "groups chain floor")
+    out["exact_scan_groups_chain_floor_ms"] = cuda_ms(
+        lambda: fm.exact_scan(*fg[:3], occ=fg[3], bonus=fg[4]), 20)
+    out["best_host_groups_ms"] = cuda_ms(
+        lambda: fm.best_host(jp, hp, forb, None, 0.2, occ=occ), 50)
+    out["best_host_groups_bonus_ms"] = cuda_ms(
+        lambda: fm.best_host(jp, hp, forb, bonus, 0.0, occ=occ), 50)
+    out["best_host_groups_plain_ms"] = cuda_ms(
+        lambda: fm.best_host_plain(jp, hp, forb, None, 0.2, occ=occ), 5)
+    # bounds: each input read once, each output written once; the walk's
+    # operations per (job, host) pair plus 1 for the bonus add and 1 for
+    # the occupancy test; best_host's as the G = 1 route's plus 1 a
+    # unique row's pair, and the occupancy rows of the unique rows'
+    # groups read once
+    lanes = 16 * H * 4
+    out["exact_scan_bonus_bound"] = bound(
+        S * 8 * 4 + lanes + S * H + S * H * 4 + S * 4 + lanes,
+        S * H * (OPS_PER_PAIR + 1))
+    out["exact_scan_groups_bound"] = bound(
+        S * 8 * 4 + lanes + S * H + 2 * Gm * H + S * 4 + lanes,
+        S * H * (OPS_PER_PAIR + 1))
+    j = jp.cpu().numpy()
+    uniq = j[:, fm.J_UNIQUE] > 0
+    rows = len(np.unique(np.clip(j[uniq, fm.J_GROUP], 0, Gm - 1)))
+    feas = int(fm.best_host_feasible(jp, hp, forb, occ).sum())
+    out["best_host_groups_feasible_pairs"] = feas
+    out["best_host_groups_bound"] = bound(
+        D * 8 * 4 + BH_HOST_ROWS * H * 4 + D * H + rows * H + D * 8,
+        H * BH_OPS_HOST + D * H * BH_OPS_PAIR + int(uniq.sum()) * H
+        + feas * (BH_OPS_FIT + BH_OPS_JITTER))
+    out["G"] = Gm
+    print(json.dumps({"group_routes": out}), flush=True)
+    return out
+
+
+def group_cells_phase(dev):
+    """4b: the grouped and locality cells (module docstring). Returns
+    ({cell: stats}, {cell: kernel launches of its timed cycles})."""
+    import torch
+    from cook_tpu_torch.entry import resident_workload, sequential_for
+    from cook_tpu_torch.ops import fused_match as fm
+    from cook_tpu_torch.ops import match as match_ops
+
+    stats, launches = {}, {}
+    match = ("exact_scan", "exact_scan/bonus", "exact_scan/groups",
+             "best_host", "best_host/groups")
+    for name, knobs in GROUP_CELLS:
+        for C in (S_MAIN, C_BATCHED):
+            seq = sequential_for(C)
+            cell = f"{name}_{'sequential' if seq else 'batched'}"
+            t0 = time.perf_counter()
+            w = resident_workload(device=dev, seed=0, C=C, **knobs)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            wc = resident_workload(device="cpu", seed=0, C=C, **knobs)
+            for c in range(GROUP_AGREE):
+                out, mi, mh = w.cycle()
+                outc, mic, mhc = wc.cycle()
+                if not (np.array_equal(mi, mic) and np.array_equal(mh, mhc)
+                        and torch.equal(out[8].cpu(), outc[8])):
+                    fail(f"{cell} cycle {c}: the card disagrees with the "
+                         f"CPU path")
+                check_cycle_state(w, mi, c, cell)
+            del wc
+            host_ms, event_ms, matched, groups = [], [], [], []
+            per_cycle = []
+            for c in range(GROUP_WARMUP):
+                w.cycle()
+            fm.reset_launches()
+            for c in range(GROUP_TIMED):
+                before = dict(fm.LAUNCHES)
+                rounds = match_ops.ROUNDS["dense"]
+                t = time.perf_counter()
+                out, mi, mh = w.cycle()
+                torch.cuda.synchronize()
+                host_ms.append((time.perf_counter() - t) * 1e3)
+                event_ms.append(w.timing["event_ms"])
+                matched.append(len(mi))
+                groups.append(w.num_groups)
+                per_cycle.append({k: fm.LAUNCHES[k] - before[k]
+                                  for k in match})
+                per_cycle[-1]["dense_rounds"] = \
+                    match_ops.ROUNDS["dense"] - rounds
+                check_cycle_state(w, mi, c, cell)
+            launches[cell] = dict(fm.LAUNCHES)
+            # the walk (or the head) once a cycle on this cell's route,
+            # best_host on its route once a dense round, nothing else
+            route = ("exact_scan/groups" if name == "grouped"
+                     else "exact_scan/bonus")
+            dense = "best_host/groups" if name == "grouped" else "best_host"
+            for c, d in enumerate(per_cycle):
+                other = sum(d[k] for k in match) - d[route] - d[dense]
+                if d[route] != 1 or d[dense] != d["dense_rounds"] or other:
+                    fail(f"{cell} cycle {c}: match launches {d}")
+            if not seq and not any(d[dense] for d in per_cycle):
+                fail(f"{cell}: no dense round ran")
+            if not sum(matched):
+                fail(f"{cell}: nothing matched")
+            cost = launches_and_syncs(lambda: w.cycle())
+            # the plain route (_scan_assign and the plain dense
+            # expression), which these cells took before the kernels
+            # covered groups and a bonus
+            plain_ms = []
+            snap = {k: fm.LAUNCHES[k] for k in match}
+            for _ in range(GROUP_PLAIN):
+                t = time.perf_counter()
+                _, mi, _ = w.cycle(use_kernel=False)
+                torch.cuda.synchronize()
+                plain_ms.append((time.perf_counter() - t) * 1e3)
+            if {k: fm.LAUNCHES[k] for k in match} != snap:
+                fail(f"{cell}: the plain route launched a match kernel")
+            stats[cell] = {
+                "C": C, "knobs": {k: list(v) if isinstance(v, tuple) else v
+                                  for k, v in knobs.items()},
+                "setup_s": setup_s, "cycles": GROUP_TIMED,
+                "num_groups": groups,
+                "event_ms_p50": float(np.median(event_ms)),
+                "event_ms_p99": float(np.percentile(event_ms, 99)),
+                "host_ms_p50": float(np.median(host_ms)),
+                "host_ms_p99": float(np.percentile(host_ms, 99)),
+                "matched_per_cycle": matched,
+                "match_launches_per_cycle": per_cycle,
+                **cost,
+                "plain_route_label": "the parent's route: before the "
+                                     "kernels covered groups and a bonus "
+                                     "this cell ran _scan_assign and the "
+                                     "plain dense expression (forced "
+                                     "here with use_kernel=False)",
+                "plain_route_host_ms": plain_ms,
+                "elapsed_s": time.perf_counter() - T_START}
+            print(json.dumps({f"group_cell_{cell}": stats[cell]}),
+                  flush=True)
+            del w
+    return stats, launches
 
 
 def scatter_cases(device):
@@ -1889,8 +2267,10 @@ def parallel_phase(dev):
     before = dict(fm.LAUNCHES)
     want_g = match_ops.match_scan(jg, hg, fg, num_groups=PAR_GROUPS,
                                   bonus=bg, use_kernel=True)
-    if fm.LAUNCHES != before:
-        fail("the grouped scan with a bonus launched a kernel")
+    if {k: v - before[k] for k, v in fm.LAUNCHES.items() if v != before[k]} \
+            != {"exact_scan/groups": 1}:
+        fail("the grouped scan with a bonus beside the sharded one is not "
+             "one exact_scan/groups launch")
     placed_g = check_sharded_scan(got_g, want_g, "groups+bonus")
     jh = got_g.job_host.cpu().numpy()
     grp = jg.group.cpu().numpy()
@@ -2318,6 +2698,9 @@ def main():
     bh_bonus_bound_ms, _ = bound(
         bh_bytes + D * H_MAIN * 4, bh_ops + feas * (BH_OPS_FIT + BH_OPS_BONUS))
 
+    # ---- 3d. the walk's bonus and groups routes, best_host's groups ------
+    gr = group_routes(dev, cluster)
+
     mark("kernels")
     # ---- 4. the sequential path: resident cycles through exact_scan --------
     t0 = time.perf_counter()
@@ -2440,6 +2823,9 @@ def main():
         fail("the batched plain replay launched a kernel")
 
     mark("batched")
+    # ---- 5b. the grouped and locality cells --------------------------------
+    group_out, group_launches = group_cells_phase(dev)
+    mark("groups")
     # ---- 6. the rebalancer: bench_rebalance's sweeps through the kernels -
     reb_out, reb_launches = rebalance_phase(dev)
     # its usage scatter alone: ordered_scatter's sorted route
@@ -2536,6 +2922,8 @@ def main():
         "server": server_out,
         "operator": operator_out,
         "parallel": parallel_out,
+        "group_routes": gr,
+        "group_cells": group_out,
         "ordered_scatter_sorted_rebalance_usage_ms": rs_ms,
         "ordered_scatter_sorted_plain_ms": rs_plain_ms,
         "ordered_scatter_sorted_bound_ms": rs_bound[0],
@@ -2556,7 +2944,9 @@ def main():
                    "e2e_batched": e2e_launches["batched"][k],
                    "server": server_launches[k], "sim": sim_launches[k],
                    "pools": par_launches["pools"][k],
-                   "sharded": par_launches["sharded"][k]}
+                   "sharded": par_launches["sharded"][k],
+                   **{cell: group_launches[cell][k]
+                      for cell in group_launches}}
                for k in seq_launches}
 
     def entry(name, route, source, replaces, err, ms, plain, bnd, lib,
@@ -2573,9 +2963,30 @@ def main():
               "cook_tpu/ops/pallas_match.py:166", max_err, kernel_ms,
               plain_ms, (scan_bound_ms, scan_bound_by), None,
               chain_floor_ms=floor_ms, cluster_ctas=cluster),
+        entry("exact_scan/bonus", "cuda", "cook_tpu_torch/csrc/exact_scan.cu",
+              "cook_tpu/ops/pallas_match.py:166 (the route of the XLA scan "
+              "cook_tpu/ops/match.py:135 with a bonus)", gr["scan_err"],
+              gr["exact_scan_bonus_ms"], gr["exact_scan_bonus_plain_ms"],
+              gr["exact_scan_bonus_bound"], None,
+              chain_floor_ms=gr["exact_scan_bonus_chain_floor_ms"]),
+        entry("exact_scan/groups", "cuda",
+              "cook_tpu_torch/csrc/exact_scan.cu",
+              "cook_tpu/ops/pallas_match.py:166 (the route of the XLA scan "
+              "cook_tpu/ops/match.py:135 with G groups)", gr["scan_err"],
+              gr["exact_scan_groups_ms"], gr["exact_scan_groups_plain_ms"],
+              gr["exact_scan_groups_bound"], None, groups=gr["G"],
+              with_bonus_ms=gr["exact_scan_groups_bonus_ms"],
+              chain_floor_ms=gr["exact_scan_groups_chain_floor_ms"]),
         entry("best_host", "cuda", "cook_tpu_torch/csrc/best_host.cu",
               "cook_tpu/ops/pallas_match.py:285", bh_err, bh_ms,
               bh_plain_ms, (bh_bound_ms, bh_bound_by), None),
+        entry("best_host/groups", "cuda", "cook_tpu_torch/csrc/best_host.cu",
+              "cook_tpu/ops/pallas_match.py:285 (the route of the XLA dense "
+              "round cook_tpu/ops/match.py:667 with G groups)",
+              gr["best_host_err"], gr["best_host_groups_ms"],
+              gr["best_host_groups_plain_ms"], gr["best_host_groups_bound"],
+              None, groups=gr["G"],
+              with_bonus_ms=gr["best_host_groups_bonus_ms"]),
         entry("blocked_cumsum", "cuda",
               "cook_tpu_torch/csrc/blocked_cumsum.cu",
               "none: jnp.cumsum (cook_tpu/ops/segments.py:39, dru.py:136, "

@@ -4,10 +4,14 @@
 // `_kernel`, `_kernel_bonus`, `_score_tile`, `_accumulate`). For each of N
 // compact job rows and each of H hosts: the feasibility mask (host valid,
 // slots > 0, forbidden byte 0, mem/cpus fit with eps 1e-6, the gpu-host
-// rule, group-0 unique occupancy, row active), the division-form
+// rule, unique occupancy, row active), the division-form
 // cpuMemBinPacker fitness, an optional (N, H) bonus and the u32 hash
 // jitter x `spread`; then the row's first maximum over H. Emits only
 // (best_fit, best_host) per row: -1.0 and -1 when nothing beats -1.0.
+// Unique occupancy is the host stack's group-0 row (one group: the TPU
+// kernel's fold), or, with G groups, a (G, H) u8 occupancy read at each
+// unique row's group (clip(id, 0, G - 1), the XLA dense round's gather,
+// cook_tpu/ops/match.py:676-678), 16 bytes beside each 16 mask bytes.
 //
 // What bounds it on an H100: the (N, H) byte mask (plus the (N, H) f32
 // bonus in the bonus variant) streamed once from device memory, and the
@@ -38,12 +42,10 @@
 //   call ~60% of pairs are feasible, so a warp would take the branch
 //   anyway), then a running (fit, host) per thread, even and odd hosts
 //   apart so the two select chains overlap.
-// - The division by the capacity, RN(a / b), as q = RN(a y), r = a - b q,
-//   RN(q + r y) with y = RN(1 / b) taken once per host (__frcp_rn): one
-//   multiply and two FMAs, no MUFU or FCHK a pair. It equals __fdiv_rn
-//   when a is 0 or in [2^-60, 2^60] and b in [2^-60, 2^60] (Markstein's
-//   correction theorem; `best_host_div_check` below holds it against
-//   __fdiv_rn over every pair of mantissas). The kernel takes this path
+// - The division by the capacity, RN(a / b), by div_rn.cuh: a
+//   reciprocal taken once per host and one correction, no MUFU or FCHK
+//   a pair (`best_host_div_check` below holds it against __fdiv_rn over
+//   every pair of mantissas). The kernel takes this path
 //   only when every host of the tile and the row are tame: used and
 //   demand 0 or in [2^-60, 2^59], capacity in [2^-60, 2^60]; otherwise
 //   __fdiv_rn. A host without capacity gets y = 0, so its term is +0.
@@ -63,12 +65,14 @@
 // Numerics: every float op is an explicit round-to-nearest intrinsic
 // (no FMA contraction; the build also passes --fmad=false) in the order
 // 0.5 * (f_mem + f_cpu), then + bonus, then + noise; fitness divides by
-// the capacity (correctly rounded, as above), unlike exact_scan's
-// reciprocal. The jitter is u32 arithmetic keyed on the GLOBAL row and
+// the capacity (correctly rounded, as above), as exact_scan does. The
+// jitter is u32 arithmetic keyed on the GLOBAL row and
 // host index. So the result equals the plain PyTorch version bit for
 // bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "div_rn.cuh"
 
 namespace {
 
@@ -78,7 +82,7 @@ constexpr int kChunk = 16;      // hosts a mask load
 constexpr int JOB_COLS = 8;
 enum { H_MEM, H_CPUS, H_GPUS, H_CAP_MEM, H_CAP_CPUS, H_CAP_GPUS, H_SLOTS,
        H_VALID, H_OCC0, H_FIELDS };
-enum { J_MEM, J_CPUS, J_GPUS, J_ACTIVE, J_UNIQUE };
+enum { J_MEM, J_CPUS, J_GPUS, J_ACTIVE, J_UNIQUE, J_GROUP };
 constexpr float EPS = 1e-6f;
 
 // monotone map of a float's order onto u32 (finite values)
@@ -89,18 +93,6 @@ __device__ __forceinline__ uint32_t order_key(float f) {
 
 __device__ __forceinline__ float from_order_key(uint32_t m) {
   return __uint_as_float((m & 0x80000000u) ? (m & 0x7FFFFFFFu) : ~m);
-}
-
-// 0 or a normal number in [2^-60, 2^59]
-__device__ __forceinline__ bool tame(float x) {
-  return x == 0.f || (x >= 0x1p-60f && x <= 0x1p59f);
-}
-
-// RN(a / b) from y = RN(1 / b): exact for a in {0} U [2^-60, 2^60] and b
-// in [2^-60, 2^60]; with y = 0 (no capacity) and a >= 0 it gives +0
-__device__ __forceinline__ float div_rn(float a, float b, float y) {
-  const float q = __fmul_rn(a, y);
-  return __fmaf_rn(__fmaf_rn(-b, q, a), y, q);
 }
 
 // byte q of the result is 0x80 where byte q of w is nonzero
@@ -170,11 +162,12 @@ best_host_kernel(const float* __restrict__ jobs,
                  const float* __restrict__ hosts,
                  const uint8_t* __restrict__ forb,
                  const float* __restrict__ bonus,
+                 const uint8_t* __restrict__ occ,
                  float* __restrict__ best_fit,
                  int32_t* __restrict__ best_idx,
                  unsigned long long* __restrict__ slots,
                  unsigned int* __restrict__ done,
-                 int N, int H, float spread) {
+                 int N, int H, int G, float spread) {
   __shared__ float4 s_a[kTileH];
   __shared__ float4 s_b[kTileH];
   __shared__ uint4 s_c[kTileH];
@@ -202,15 +195,16 @@ best_host_kernel(const float* __restrict__ jobs,
                          cc ? __frcp_rn(f[H_CAP_CPUS]) : 0.f);
     const bool ok = h < H && f[H_VALID] > 0.f && f[H_SLOTS] > 0.f;
     const bool gpu = f[H_CAP_GPUS] > 0.f;
-    const bool vacant = !(f[H_OCC0] > 0.f);
+    // with a (G, H) occupancy the rows' groups are checked per pair
+    // instead, and the host stack's group-0 row is not read
+    const bool vacant = occ != nullptr || !(f[H_OCC0] > 0.f);
     const uint32_t cls = (ok && !gpu ? C_CPU : 0u) | (ok && gpu ? C_GPU : 0u) |
                          (ok && !gpu && vacant ? C_CPU_UNIQUE : 0u) |
                          (ok && gpu && vacant ? C_GPU_UNIQUE : 0u);
     s_c[i] = make_uint4(__float_as_uint(__fadd_rn(f[H_GPUS], EPS)), cls,
                         (uint32_t)h * 40503u, 0u);
     tame_hosts = tame_hosts && tame(used_mem) && tame(used_cpus) &&
-        (!cm || (cap_mem >= 0x1p-60f && cap_mem <= 0x1p60f)) &&
-        (!cc || (cap_cpus >= 0x1p-60f && cap_cpus <= 0x1p60f));
+        (!cm || tame_divisor(cap_mem)) && (!cc || tame_divisor(cap_cpus));
   }
   tame_hosts = __syncthreads_and(tame_hosts);
 
@@ -229,11 +223,25 @@ best_host_kernel(const float* __restrict__ jobs,
     const bool fast = tame_hosts && tame(r.jm) && tame(r.jc);
     const uint8_t* mrow = forb + (size_t)row * HH + ht;
     const float* brow = kBonus ? bonus + (size_t)row * HH + ht : nullptr;
+    // a unique row's group's occupancy (groups = clip(id, 0, G - 1)),
+    // OR-ed into its mask bytes
+    const uint8_t* orow = nullptr;
+    if (occ != nullptr && j[J_UNIQUE] > 0.f) {
+      const int g = (int)fminf(fmaxf(j[J_GROUP], 0.f), (float)(G - 1));
+      orow = occ + (size_t)g * HH + ht;
+    }
     for (int c0 = 0; c0 < kTileH && ht + c0 < H; c0 += kChunk) {
       uint32_t nz[4];
       float bz[kBonus ? kChunk : 1];
       if (kVec) {
-        const uint4 w = *reinterpret_cast<const uint4*>(mrow + c0);
+        uint4 w = *reinterpret_cast<const uint4*>(mrow + c0);
+        if (orow) {
+          const uint4 o = *reinterpret_cast<const uint4*>(orow + c0);
+          w.x |= o.x;
+          w.y |= o.y;
+          w.z |= o.z;
+          w.w |= o.w;
+        }
         nz[0] = nonzero_bytes(w.x);
         nz[1] = nonzero_bytes(w.y);
         nz[2] = nonzero_bytes(w.z);
@@ -253,7 +261,9 @@ best_host_kernel(const float* __restrict__ jobs,
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const int h = c0 + 4 * k + q;
-            w |= (ht + h < H ? (uint32_t)mrow[h] : 1u) << (8 * q);
+            const uint32_t m =
+                ht + h < H ? (uint32_t)mrow[h] | (orow ? orow[h] : 0u) : 1u;
+            w |= m << (8 * q);
           }
           nz[k] = nonzero_bytes(w);
         }
@@ -298,26 +308,28 @@ best_host_kernel(const float* __restrict__ jobs,
 
 template <bool kBonus, bool kVec, bool kJitter>
 void launch(dim3 grid, cudaStream_t s, const void* jobs, const void* hosts,
-            const void* forb, const void* bonus, void* best_fit,
-            void* best_idx, void* scratch, int N, int H, float spread) {
+            const void* forb, const void* bonus, const void* occ,
+            void* best_fit, void* best_idx, void* scratch, int N, int H,
+            int G, float spread) {
   best_host_kernel<kBonus, kVec, kJitter><<<grid, kThreads, 0, s>>>(
       (const float*)jobs, (const float*)hosts, (const uint8_t*)forb,
-      (const float*)bonus, (float*)best_fit, (int32_t*)best_idx,
-      (unsigned long long*)scratch,
-      (unsigned int*)((unsigned long long*)scratch + N), N, H, spread);
+      (const float*)bonus, (const uint8_t*)occ, (float*)best_fit,
+      (int32_t*)best_idx, (unsigned long long*)scratch,
+      (unsigned int*)((unsigned long long*)scratch + N), N, H, G, spread);
 }
 
 template <bool kBonus, bool kVec>
 void launch_jitter(dim3 grid, cudaStream_t s, const void* jobs,
                    const void* hosts, const void* forb, const void* bonus,
-                   void* best_fit, void* best_idx, void* scratch, int N,
-                   int H, float spread) {
+                   const void* occ, void* best_fit, void* best_idx,
+                   void* scratch, int N, int H, int G, float spread) {
   if (spread != 0.f)
-    launch<kBonus, kVec, true>(grid, s, jobs, hosts, forb, bonus, best_fit,
-                               best_idx, scratch, N, H, spread);
+    launch<kBonus, kVec, true>(grid, s, jobs, hosts, forb, bonus, occ,
+                               best_fit, best_idx, scratch, N, H, G, spread);
   else
-    launch<kBonus, kVec, false>(grid, s, jobs, hosts, forb, bonus, best_fit,
-                                best_idx, scratch, N, H, spread);
+    launch<kBonus, kVec, false>(grid, s, jobs, hosts, forb, bonus, occ,
+                                best_fit, best_idx, scratch, N, H, G,
+                                spread);
 }
 
 // div_rn against __fdiv_rn: blockIdx.x + b0 is b's mantissa (b in [1,
@@ -340,38 +352,44 @@ __global__ void div_check_kernel(unsigned b0,
 }  // namespace
 
 // Plain C entry point (bound with ctypes). `bonus` may be null (the
-// variant that reads no bonus). `scratch` holds N + 1 u64: the rows'
-// argmax slots and the CTA counter, zeroed here on `stream`. Launches on
-// `stream` and returns the CUDA error as an int (0 = launched;
-// cudaErrorInvalidValue when H needs more than 65,535 host tiles).
+// variant that reads no bonus); `occ` is null (the group-0 occupancy
+// row of the host stack) or the (G, H) u8 occupancy of G groups.
+// `scratch` holds N + 1 u64: the rows' argmax slots and the CTA counter,
+// zeroed here on `stream`. Launches on `stream` and returns the CUDA
+// error as an int (0 = launched; cudaErrorInvalidValue when H needs more
+// than 65,535 host tiles).
 extern "C" int best_host_launch(const void* jobs, const void* hosts,
                                 const void* forb, const void* bonus,
-                                void* best_fit, void* best_idx,
-                                void* scratch, int N, int H, float spread,
-                                void* stream) {
+                                const void* occ, void* best_fit,
+                                void* best_idx, void* scratch, int N, int H,
+                                int G, float spread, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid((N + kThreads - 1) / kThreads, (H + kTileH - 1) / kTileH);
   if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
   cudaError_t e =
       cudaMemsetAsync(scratch, 0, ((size_t)N + 1) * sizeof(uint64_t), s);
   if (e != cudaSuccess) return (int)e;
-  // 16-byte mask and bonus vectors
+  // 16-byte mask, occupancy and bonus vectors
   const bool vec = H % kChunk == 0 && (uintptr_t)forb % 16 == 0 &&
-                   (!bonus || (uintptr_t)bonus % 16 == 0);
+                   (!bonus || (uintptr_t)bonus % 16 == 0) &&
+                   (uintptr_t)occ % 16 == 0;
   if (bonus) {
     if (vec)
-      launch_jitter<true, true>(grid, s, jobs, hosts, forb, bonus, best_fit,
-                                best_idx, scratch, N, H, spread);
+      launch_jitter<true, true>(grid, s, jobs, hosts, forb, bonus, occ,
+                                best_fit, best_idx, scratch, N, H, G, spread);
     else
-      launch_jitter<true, false>(grid, s, jobs, hosts, forb, bonus, best_fit,
-                                 best_idx, scratch, N, H, spread);
+      launch_jitter<true, false>(grid, s, jobs, hosts, forb, bonus, occ,
+                                 best_fit, best_idx, scratch, N, H, G,
+                                 spread);
   } else {
     if (vec)
-      launch_jitter<false, true>(grid, s, jobs, hosts, forb, nullptr,
-                                 best_fit, best_idx, scratch, N, H, spread);
+      launch_jitter<false, true>(grid, s, jobs, hosts, forb, nullptr, occ,
+                                 best_fit, best_idx, scratch, N, H, G,
+                                 spread);
     else
-      launch_jitter<false, false>(grid, s, jobs, hosts, forb, nullptr,
-                                  best_fit, best_idx, scratch, N, H, spread);
+      launch_jitter<false, false>(grid, s, jobs, hosts, forb, nullptr, occ,
+                                  best_fit, best_idx, scratch, N, H, G,
+                                  spread);
   }
   return (int)cudaGetLastError();
 }

@@ -38,6 +38,11 @@ INF = np.float32(3.4e38)
 # resident workload mix: shares of gpu hosts and gpu jobs, and the share
 # of hosts each constrained job forbids
 GPU_HOSTS, GPU_JOBS, FORBID_DENSITY = 0.05, 0.01, 0.05
+# a data-local job's bonus: the hosts of its dataset's replicas (HDFS's
+# default replication) and the largest bonus, w * (1 - cost) with costs
+# in [0, 1] and a locality weight (0.25 by default, config.clj:418-428)
+# of at most 0.3
+LOCALITY_HOSTS, LOCALITY_MAX = 3, 0.3
 
 # the coordinator's matcher choice (a copy of cook_tpu's
 # SchedulerConfig.sequential_match_threshold and the dispatch at
@@ -230,7 +235,15 @@ class ResidentWorkload:
     max(R + R/5 + 2C, P/8)), Hcap = bucket(H). Hosts and running tasks
     follow bench.py::_cycle_setup's ranges; `constrained` of the pending
     jobs own a forbidden row (FORBID_DENSITY of the hosts); `ports` and
-    `est` switch on the ports and estimated-completion lanes. Each
+    `est` switch on the ports and estimated-completion lanes.
+    `groups=(share, size)` puts that share of the arriving pending jobs
+    into host-placement-unique groups of `size` members each (Spark
+    executors: one a host), with dense group ids minted in arrival order
+    and the cycle's num_groups the resident pool's rule (1 without
+    groups, else bucket(groups seen)); `locality` gives that share of
+    them a sparse data-locality bonus row (U(0, LOCALITY_MAX) on the
+    LOCALITY_HOSTS hosts that hold their dataset's replicas, 0
+    elsewhere), shipped as the resident pool ships them. Each
     `cycle()` ships the deltas marked since the last one, runs one
     `device_cycle`, reads back the matched prefix, and then advances the
     stream from that result: matched jobs become running tasks, C
@@ -240,18 +253,24 @@ class ResidentWorkload:
 
     def __init__(self, R=10_000, P=100_000, H=10_000, U=500, C=1024,
                  forb_cap=4096, constrained=0.02, ports=True, est=True,
-                 seed=0, device="cuda"):
+                 groups=None, locality=0.0, seed=0, device="cuda"):
         self.device = resolve_device(device)
         self.rng = np.random.default_rng(seed)
         self.U, self.C, self.H = U, C, H
         self.constrained = constrained
         self.ports = ports
+        self.group_share, self.group_size = groups or (0.0, 1)
+        self.grouped_jobs = 0       # jobs given a group so far
+        self.locality = locality
         self.now_s = 0
         head = 2 * C
         Pcap = bucket(max(P + P // 5 + head, 1024))
         Rcap = bucket(max(R + R // 5 + head, P // 8, 1024))
         Hcap = max(bucket(H), 64)
+        bonus_cap = bucket(int(locality * (P + P // 5))) if locality else 1
         rs = self.rs = ResidentState(Pcap, Rcap, Hcap, forb_cap=forb_cap,
+                                     bonus_cap=bonus_cap,
+                                     with_bonus=bool(locality),
                                      with_est=est, device=self.device)
         rng = self.rng
 
@@ -292,6 +311,7 @@ class ResidentWorkload:
         # pending jobs
         self.pend_free = list(range(Pcap - 1, -1, -1))
         self.forb_free = list(range(forb_cap - 1, -1, -1))
+        self.bonus_free = list(range(rs.bonus_cap - 1, -1, -1))
         self._arrive(P)
 
         # per-user quotas: a tenth of the users are capped near their
@@ -334,7 +354,35 @@ class ResidentWorkload:
             rs._forb_rows_m[slots] = (rng.random((len(con), rs.Hcap))
                                 < FORBID_DENSITY)
             rs.mark_forb(slots)
+        pm["group"][rows] = -1
+        pm["unique_group"][rows] = False
+        if self.group_share:
+            grouped = rows[rng.random(n) < self.group_share]
+            pm["group"][grouped] = (self.grouped_jobs + np.arange(
+                len(grouped))) // self.group_size
+            pm["unique_group"][grouped] = True
+            self.grouped_jobs += len(grouped)
+        pm["bonus_slot"][rows] = -1
+        if self.locality:
+            loc = rows[rng.random(n) < self.locality]
+            loc = loc[:len(self.bonus_free)]
+            slots = np.asarray([self.bonus_free.pop() for _ in loc],
+                               np.int64)
+            pm["bonus_slot"][loc] = slots
+            rs._bonus_rows_m[slots] = 0.0
+            hosts = rng.integers(0, self.H, (len(loc), LOCALITY_HOSTS))
+            rs._bonus_rows_m[slots[:, None], hosts] = rng.uniform(
+                0, LOCALITY_MAX, hosts.shape)
+            rs.mark_bonus(slots)
         rs.mark_pend(rows)
+
+    @property
+    def num_groups(self) -> int:
+        """The cycle's group bound, the resident pool's rule
+        (resident.py:1387-1389): 1 without groups, else the bucket of
+        the groups minted so far."""
+        n = -(-self.grouped_jobs // self.group_size)
+        return 1 if n == 0 else bucket(n)
 
     def advance(self, mat_idx: np.ndarray, mat_host: np.ndarray) -> None:
         """Fold one cycle's readback into the mirrors and mark the next
@@ -356,6 +404,8 @@ class ResidentWorkload:
         for p, h in zip(mat_idx.tolist(), mat_host.tolist()):
             if pm["forb_slot"][p] >= 0:
                 self.forb_free.append(int(pm["forb_slot"][p]))
+            if pm["bonus_slot"][p] >= 0:
+                self.bonus_free.append(int(pm["bonus_slot"][p]))
             self.pend_free.append(p)
             if not self.run_free:
                 continue
@@ -385,8 +435,9 @@ class ResidentWorkload:
         bundle = rs.ship(rs.drain())
         t1 = time.perf_counter()
         out = rs.run_cycle(bundle, self.qm, self.qc, self.qn, self.C,
-                           self.now_s, self.C, use_kernel=use_kernel,
-                           sequential=sequential, match_kw=match_kw)
+                           self.now_s, self.C, num_groups=self.num_groups,
+                           use_kernel=use_kernel, sequential=sequential,
+                           match_kw=match_kw)
         mat_idx, mat_host = rs.readback(out)
         t2 = time.perf_counter()
         if cuda:

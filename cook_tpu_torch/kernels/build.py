@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C launch function. At first use it
 is compiled with nvcc for sm_90a into `cook_tpu_torch/_build/` (listed
-in .gitignore), keyed by a hash of the source and flags, and loaded with
+in .gitignore), keyed by a hash of the source, the shared `csrc/*.cuh`
+headers and the flags, and loaded with
 ctypes: every pointer and the stream are passed as c_void_p. Only
 sources in this package are compiled.
 
@@ -34,10 +35,10 @@ KERNELS = ("exact_scan", "best_host", "blocked_cumsum", "ordered_scatter",
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "exact_scan": {
-        "exact_scan_launch": [_P] * 8 + [_I, _I, _P],
+        "exact_scan_launch": [_P] * 11 + [_I, _I, _I, _P],
         "exact_scan_cluster": []},
     "best_host": {
-        "best_host_launch": [_P] * 7 + [_I, _I, ctypes.c_float, _P],
+        "best_host_launch": [_P] * 8 + [_I, _I, _I, ctypes.c_float, _P],
         "best_host_div_check": [ctypes.c_uint, ctypes.c_uint, _P, _P]},
     "blocked_cumsum": {
         "blocked_cumsum_launch": [_P] * 2 + [_I, _I, _LL, _LL, _I, _I, _P],
@@ -70,7 +71,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
+    # the shared headers are part of every source's key
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src.read_bytes() + headers
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}-{key}.so"
 

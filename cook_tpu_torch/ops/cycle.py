@@ -8,10 +8,11 @@ compaction/provenance epilogue (a port of cook_tpu/ops/cycle.py:37-347).
      running usage plus the queue prefix ahead of them, capped at
      `num_considerable` and the dynamic `considerable_limit`,
   3. match: greedy assignment of the considerable jobs onto hosts
-     (ops/match.py): the sequential walk (the exact_scan kernel when
-     eligible) or, with `sequential=False`, the batched `match_rounds`
-     (its exact head and dense rounds through the exact_scan and
-     best_host kernels when eligible),
+     (ops/match.py): the sequential walk (the exact_scan kernel with
+     `use_kernel`) or, with `sequential=False`, the batched
+     `match_rounds` (its exact head and dense rounds through the
+     exact_scan and best_host kernels with `use_kernel`), whatever the
+     groups and the bonus,
   4. epilogue: matched slots packed to the front in queue order, and a
      reason code per fair-queue position.
 
@@ -133,12 +134,10 @@ def rank_and_match(
     considerable_limit=None,   # dynamic scaleback cap (int or 0-d tensor)
     bonus=None,                # None | (P, H) f32 | tuple (rows (Kb, H)
                                # f32, slot_of (P,) i32), like `forbidden`
-    use_kernel: bool = False,  # the reference's `use_pallas`: the
-                               # sequential walk as the exact_scan kernel
-                               # (num_groups == 1, no bonus); in
-                               # match_rounds also the head (same gate)
-                               # and the dense rounds' best_host kernel
-                               # (num_groups == 1)
+    use_kernel: bool = False,  # the match kernels: the sequential walk
+                               # and match_rounds' head as exact_scan,
+                               # its dense rounds as best_host, any
+                               # groups, any bonus
     dru_mode: str = "default",  # "default" (cpu/mem) | "gpu"
     run_gpus=None,             # (R,) — required in gpu mode
     run_gpu_share=None,        # (R,) — required in gpu mode
@@ -270,8 +269,7 @@ def rank_and_match(
         res = matcher(jobs, hosts, forb, bonusc)
     elif sequential:
         res = match_ops.match_scan(jobs, hosts, forb, num_groups=num_groups,
-                                   bonus=bonusc,
-                                   use_kernel=use_kernel and bonus is None)
+                                   bonus=bonusc, use_kernel=use_kernel)
     else:
         kw = {"rounds": 4, **dict(match_kw or ())}
         res = match_ops.match_rounds(jobs, hosts, forb,

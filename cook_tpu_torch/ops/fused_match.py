@@ -4,19 +4,26 @@ cook_tpu/ops/pallas_match.py (`pack_jobs`, `pack_hosts`, `exact_scan`,
 `_accumulate`, `_kernel`, `_kernel_bonus`).
 
   exact_scan  the whole sequential-greedy walk (the Fenzo walk) in one
-              launch of a thread-block cluster (csrc/exact_scan.cu);
+              launch of a thread-block cluster (csrc/exact_scan.cu), for
+              any number of groups and an optional fitness bonus;
   best_host   one dense round of the batched matcher: feasibility +
               fitness + optional bonus + hash jitter, row argmax over
-              hosts (csrc/best_host.cu).
+              hosts, for any number of groups (csrc/best_host.cu).
 
 Each wrapper launches its hand-written sm_90a kernel for CUDA tensors
 and runs its plain PyTorch version (`*_plain`) for CPU tensors; anything
 else raises. There is no fallback from a kernel to its plain version.
 
-`exact_scan_plain` repeats its kernel's arithmetic exactly: fitness with
-precomputed reciprocals (pallas_match.py:190-191, 214-215), not
-`match._fitness`'s division. `best_host_plain` uses the division form
-(pallas_match.py:108-111), as its kernel and the XLA dense round do.
+Both score fitness in the division form of the reference's default
+route (`match._fitness`, cook_tpu/ops/match.py:112-118, the XLA scan and
+the XLA dense round), and both kernels divide correctly rounded. The
+TPU scan kernel's reciprocal form (pallas_match.py:190-191, 214-215) is
+not reproduced: the reference's two routes disagree where a division
+ties and a product by a reciprocal does not.
+
+Unique occupancy: with one group it is the host stack's `H_OCC0` row
+(the TPU kernels' fold); with G groups a (G, H) bool or uint8 `occ`,
+each unique job checking its group's row, clip(J_GROUP, 0, G - 1).
 """
 from __future__ import annotations
 
@@ -32,12 +39,19 @@ H_MEM, H_CPUS, H_GPUS, H_CAP_MEM, H_CAP_CPUS, H_CAP_GPUS, \
     H_SLOTS, H_VALID, H_OCC0 = range(9)
 HOST_ROWS = 16
 
-# job-stack column indices of the (N, 8) job tensor
-J_MEM, J_CPUS, J_GPUS, J_ACTIVE, J_UNIQUE = range(5)
+# job-stack column indices of the (N, 8) job tensor; J_GROUP holds the
+# group id as f32 (exact below 2**24; clipped to [0, G - 1] in use, so
+# any id gives the result of its clip while G < 2**24)
+J_MEM, J_CPUS, J_GPUS, J_ACTIVE, J_UNIQUE, J_GROUP = range(6)
 JOB_COLS = 8
+MAX_GROUPS = 2 ** 24
 
-# kernel launches by name, counted by the wrapper where it launches
-LAUNCHES = {"exact_scan": 0, "best_host": 0, "blocked_cumsum": 0,
+# kernel launches by name, counted by the wrapper where it launches; a
+# route of a kernel counts under its own name: exact_scan/bonus (one
+# group, a bonus), exact_scan/groups (a (G, H) occupancy, a bonus or
+# none), best_host/groups (a (G, H) occupancy)
+LAUNCHES = {"exact_scan": 0, "exact_scan/bonus": 0, "exact_scan/groups": 0,
+            "best_host": 0, "best_host/groups": 0, "blocked_cumsum": 0,
             "blocked_cumsum/global": 0, "ordered_scatter": 0,
             "ordered_scatter/sorted": 0, "sum_ordered": 0,
             "sum_ordered/levels": 0}
@@ -60,49 +74,61 @@ def pack_hosts(mem_left, cpus_left, gpus_left, cap_mem, cap_cpus,
     return out
 
 
-def pack_jobs(mem, cpus, gpus, active, unique) -> torch.Tensor:
-    """(N, 8) f32 job field stack."""
+def pack_jobs(mem, cpus, gpus, active, unique, group=None) -> torch.Tensor:
+    """(N, 8) f32 job field stack; the group column stays 0 without
+    `group` (the TPU layout)."""
     f = torch.float32
     cols = [mem, cpus, gpus, active.to(f), unique.to(f)]
+    if group is not None:
+        cols.append(group.to(f))
     out = torch.zeros((mem.shape[0], JOB_COLS), dtype=f, device=mem.device)
     out[:, :len(cols)] = torch.stack(cols, dim=1)
     return out
 
 
 def exact_scan_ok(S: int, H: int, num_groups: int) -> bool:
-    """Eligibility gate: the reference's semantic conditions only —
-    single-group coupling and at least one 8-row tile of jobs (the
-    caller checks there is no bonus).
+    """Eligibility gate of the walk kernel: any walk the reference's XLA
+    scan takes — any number of groups below MAX_GROUPS (the group id
+    rides as f32), any S, a bonus or none.
 
-    The TPU gate's other two conditions do not carry over. `H % 1024`
-    came from the (8, 128) vector tiling of a VMEM-resident host stack;
-    the CUDA kernel cuts the hosts into one slice per CTA of its cluster
-    and walks each slice with a strided loop, so any H works (a mask row
-    not 16-byte sized is read with plain loads instead of bulk copies).
-    The VMEM budget kept the whole (S, H) forbidden mask on chip; the
-    CUDA kernel prefetches a few mask rows at a time and keeps up to
-    65,536 hosts' lanes on chip, the rest in a device-memory scratch, so
-    no H is refused. The remaining limits are the index widths: i32 host
-    ids, i64 mask offsets.
+    The TPU gate's conditions do not carry over. `num_groups == 1` and
+    the absent bonus came from the Pallas kernel's single occupancy row;
+    the CUDA kernel reads a (G, H) occupancy and a bonus ring. `S % 8`
+    and `H % 1024` came from the (8, 128) vector tiling of a
+    VMEM-resident host stack; the CUDA kernel cuts the hosts into one
+    slice per CTA of its cluster and walks each slice with a strided
+    loop, so any H works (a mask or bonus row not 16-byte sized is read
+    with plain loads instead of bulk copies). The VMEM budget kept the
+    whole (S, H) forbidden mask on chip; the CUDA kernel prefetches a few
+    mask rows at a time and keeps up to 65,536 hosts' lanes on chip, the
+    rest in a device-memory scratch, so no H is refused. The remaining
+    limits are the index widths: i32 host ids, i64 mask offsets.
     """
-    return num_groups == 1 and S >= 8 and 1 <= H < 2 ** 31
+    return 1 <= num_groups < MAX_GROUPS and 0 <= S and 1 <= H < 2 ** 31
 
 
 def exact_scan(jobs_packed: torch.Tensor, hosts_packed: torch.Tensor,
-               forbidden_u8: torch.Tensor):
-    """Fused sequential-greedy assignment for num_groups == 1.
+               forbidden_u8: torch.Tensor, occ: torch.Tensor | None = None,
+               bonus: torch.Tensor | None = None):
+    """Fused sequential-greedy assignment (`match._scan_assign`).
 
-    jobs_packed: (S, 8) f32; hosts_packed: (16, H) f32; forbidden_u8:
-    (S, H) uint8 or bool (nonzero = excluded). Returns (job_host (S,)
-    i32, hosts_out (16, H) f32 — the depleted host stack incl. occ0).
-    CUDA tensors launch the kernel; CPU tensors run the plain version.
+    jobs_packed: (S, 8) f32 (J_GROUP read only with `occ`); hosts_packed:
+    (16, H) f32; forbidden_u8: (S, H) uint8 or bool (nonzero =
+    excluded); occ: None (one group: the host stack's H_OCC0 row) or the
+    (G, H) bool/uint8 occupancy of G groups; bonus: None or an (S, H)
+    f32 fitness bonus. Returns (job_host (S,) i32, hosts_out (16, H) f32
+    — the depleted host stack, H_OCC0 updated when occ is None), plus
+    the updated (G, H) occupancy (occ's dtype) when occ is given. CUDA
+    tensors launch the kernel; CPU tensors run the plain version.
     """
     dev = jobs_packed.device
     if dev.type == "cpu":
-        return exact_scan_plain(jobs_packed, hosts_packed, forbidden_u8)
+        return exact_scan_plain(jobs_packed, hosts_packed, forbidden_u8,
+                                occ, bonus)
     if dev.type != "cuda":
         raise ValueError(f"exact_scan: unsupported device {dev}")
-    return _exact_scan_cuda(jobs_packed, hosts_packed, forbidden_u8)
+    return _exact_scan_cuda(jobs_packed, hosts_packed, forbidden_u8, occ,
+                            bonus)
 
 
 def exact_scan_cluster() -> int:
@@ -113,108 +139,154 @@ def exact_scan_cluster() -> int:
     return int(build.load("exact_scan").exact_scan_cluster())
 
 
-def _check(jobs_packed, hosts_packed, forb):
+def _ptr(t):
+    """A tensor's (or None's) data pointer for ctypes."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _check_occ(kernel, forb, occ):
+    """The byte masks' dtypes and the occupancy's group count."""
+    for name, t in (("forbidden", forb), ("occ", occ)):
+        if t is not None and t.dtype not in (torch.uint8, torch.bool):
+            raise TypeError(f"{kernel}: {name} must be uint8/bool, got "
+                            f"{t.dtype}")
+    if occ is not None and occ.shape[0] >= MAX_GROUPS:
+        raise ValueError(f"{kernel}: {occ.shape[0]} groups, the group "
+                         f"column is exact below {MAX_GROUPS}")
+
+
+def _check(jobs_packed, hosts_packed, forb, occ=None, bonus=None):
     S = jobs_packed.shape[0]
     H = hosts_packed.shape[1]
     if jobs_packed.shape != (S, JOB_COLS) or \
-            hosts_packed.shape != (HOST_ROWS, H) or forb.shape != (S, H):
+            hosts_packed.shape != (HOST_ROWS, H) or forb.shape != (S, H) \
+            or (bonus is not None and bonus.shape != (S, H)) \
+            or (occ is not None and (occ.dim() != 2 or occ.shape[1] != H
+                                     or occ.shape[0] < 1)):
         raise ValueError(
             f"exact_scan shapes: jobs {tuple(jobs_packed.shape)}, hosts "
-            f"{tuple(hosts_packed.shape)}, forbidden {tuple(forb.shape)}")
+            f"{tuple(hosts_packed.shape)}, forbidden {tuple(forb.shape)}, "
+            f"occ {None if occ is None else tuple(occ.shape)}, bonus "
+            f"{None if bonus is None else tuple(bonus.shape)}")
     if jobs_packed.dtype != torch.float32 or \
-            hosts_packed.dtype != torch.float32:
-        raise TypeError("exact_scan: jobs and hosts must be float32")
-    if forb.dtype not in (torch.uint8, torch.bool):
-        raise TypeError(f"exact_scan: forbidden must be uint8/bool, got "
-                        f"{forb.dtype}")
+            hosts_packed.dtype != torch.float32 or \
+            (bonus is not None and bonus.dtype != torch.float32):
+        raise TypeError("exact_scan: jobs, hosts and bonus must be float32")
+    _check_occ("exact_scan", forb, occ)
     return S, H
 
 
-def _exact_scan_cuda(jobs_packed, hosts_packed, forb):
+def _exact_scan_cuda(jobs_packed, hosts_packed, forb, occ, bonus):
     from cook_tpu_torch.kernels import build
 
-    S, H = _check(jobs_packed, hosts_packed, forb)
+    S, H = _check(jobs_packed, hosts_packed, forb, occ, bonus)
     dev = jobs_packed.device
-    if hosts_packed.device != dev or forb.device != dev:
+    ins = [t for t in (jobs_packed, hosts_packed, forb, occ, bonus)
+           if t is not None]
+    if any(t.device != dev for t in ins):
         raise ValueError("exact_scan: all inputs must be on one device")
-    if not (jobs_packed.is_contiguous() and hosts_packed.is_contiguous()
-            and forb.is_contiguous()):
+    if not all(t.is_contiguous() for t in ins):
         raise ValueError("exact_scan: inputs must be contiguous")
-    if not (S >= 1 and 1 <= H < 2 ** 31):
+    if not (S >= 0 and 1 <= H < 2 ** 31):
         raise ValueError(f"exact_scan: S={S}, H={H} out of range")
     if forb.dtype == torch.bool:
         forb = forb.view(torch.uint8)
     lib = build.load("exact_scan")
     job_host = torch.empty(S, dtype=torch.int32, device=dev)
     hosts_out = torch.empty_like(hosts_packed)
+    occ_out = None if occ is None else torch.empty_like(occ)
     # scratch for the hosts beyond the kernel's on-chip capacity: per
     # host mutable lanes (mem, cpus, gpus, slots), static lanes (cap_mem,
     # cap_cpus, 1/cap_mem, 1/cap_cpus) and flag bits, indexed by host
     dyn = torch.empty((H, 4), dtype=torch.float32, device=dev)
     stat = torch.empty((H, 4), dtype=torch.float32, device=dev)
     flags = torch.empty(H, dtype=torch.uint8, device=dev)
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.exact_scan_launch(
-            ctypes.c_void_p(jobs_packed.data_ptr()),
-            ctypes.c_void_p(hosts_packed.data_ptr()),
-            ctypes.c_void_p(forb.data_ptr()),
-            ctypes.c_void_p(job_host.data_ptr()),
-            ctypes.c_void_p(hosts_out.data_ptr()),
-            ctypes.c_void_p(dyn.data_ptr()),
-            ctypes.c_void_p(stat.data_ptr()),
-            ctypes.c_void_p(flags.data_ptr()),
-            ctypes.c_int(S), ctypes.c_int(H), ctypes.c_void_p(stream))
+            _ptr(jobs_packed), _ptr(hosts_packed), _ptr(forb), _ptr(bonus),
+            _ptr(occ), _ptr(job_host), _ptr(hosts_out), _ptr(occ_out),
+            _ptr(dyn), _ptr(stat), _ptr(flags), ctypes.c_int(S),
+            ctypes.c_int(H),
+            ctypes.c_int(1 if occ is None else occ.shape[0]),
+            ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"exact_scan kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES["exact_scan"] += 1
-    return job_host, hosts_out
+    LAUNCHES["exact_scan/groups" if occ is not None else
+             "exact_scan/bonus" if bonus is not None else "exact_scan"] += 1
+    if occ is None:
+        return job_host, hosts_out
+    return job_host, hosts_out, occ_out
+
+
+def _frac(used_plus, cap):
+    """The reference's `where(cap > 0, (used + demand) / cap, 0)`."""
+    return torch.where(cap > 0, used_plus / cap, 0.0)
 
 
 def exact_scan_plain(jobs_packed: torch.Tensor, hosts_packed: torch.Tensor,
-                     forbidden_u8: torch.Tensor):
-    """Plain PyTorch version of the kernel, on any device: the same
-    feasibility mask, reciprocal-form fitness, first-maximum argmax and
-    depletion, one Python-loop step per job."""
-    S, H = _check(jobs_packed, hosts_packed, forbidden_u8)
+                     forbidden_u8: torch.Tensor,
+                     occ: torch.Tensor | None = None,
+                     bonus: torch.Tensor | None = None):
+    """Plain PyTorch version of the kernel, on any device: one Python-loop
+    step per job of `match._scan_assign` (cook_tpu/ops/match.py:135-172)
+    on the packed layout — the feasibility mask, the group's unique
+    occupancy, division-form fitness `0.5 * (f_mem + f_cpu)` then
+    `+ bonus`, the first maximum, and the depletion. Returns what
+    `exact_scan` returns."""
+    S, H = _check(jobs_packed, hosts_packed, forbidden_u8, occ, bonus)
     dev = hosts_packed.device
     hp = hosts_packed
     cap_mem, cap_cpus, cap_gpus = hp[H_CAP_MEM], hp[H_CAP_CPUS], \
         hp[H_CAP_GPUS]
     is_gpu = cap_gpus > 0
-    inv_cm = torch.where(cap_mem > 0, 1.0 / cap_mem, 0.0)
-    inv_cc = torch.where(cap_cpus > 0, 1.0 / cap_cpus, 0.0)
     base_ok = hp[H_VALID] > 0
     mem, cpus, gpus = hp[H_MEM].clone(), hp[H_CPUS].clone(), \
         hp[H_GPUS].clone()
     slots, occ0 = hp[H_SLOTS].clone(), hp[H_OCC0].clone()
+    groups = None if occ is None else occ != 0      # a fresh (G, H) copy
+    gclip = None if occ is None else torch.clamp(
+        jobs_packed[:, J_GROUP], 0, occ.shape[0] - 1).long()
     allowed = forbidden_u8 == 0
     job_host = torch.empty(S, dtype=torch.int32, device=dev)
     for i in range(S):
         row = jobs_packed[i]
         jm, jc, jg = row[J_MEM], row[J_CPUS], row[J_GPUS]
-        ju = (row[J_UNIQUE] > 0).to(torch.float32)
+        ju = row[J_UNIQUE] > 0
         ok = base_ok & (slots > 0) & allowed[i]
         ok = ok & (mem + EPS >= jm) & (cpus + EPS >= jc)
         ok = ok & torch.where(jg > 0, is_gpu & (gpus + EPS >= jg), ~is_gpu)
-        ok = ok & ~((ju > 0) & (occ0 > 0)) & (row[J_ACTIVE] > 0)
-        fit = 0.5 * ((cap_mem - mem + jm) * inv_cm
-                     + (cap_cpus - cpus + jc) * inv_cc)
+        if groups is None:
+            occupied = occ0 > 0
+        else:
+            g = gclip[i:i + 1]                          # (1,): no sync
+            occupied = groups[g][0]
+        ok = ok & ~(ju & occupied) & (row[J_ACTIVE] > 0)
+        fit = 0.5 * (_frac(cap_mem - mem + jm, cap_mem)
+                     + _frac(cap_cpus - cpus + jc, cap_cpus))
+        if bonus is not None:
+            fit = fit + bonus[i]
         fit = torch.where(ok, fit, -1.0)
         best = torch.argmax(fit).view(1)     # first maximum
-        m = fit[best]
-        a = (m > -0.5).to(torch.float32)
-        job_host[i] = torch.where(m > -0.5, best, NO_HOST)[0]
+        assigned = fit[best] > -0.5
+        a = assigned.to(torch.float32)
+        job_host[i] = torch.where(assigned, best, NO_HOST)[0]
         mem[best] = mem[best] - a * jm
         cpus[best] = cpus[best] - a * jc
         gpus[best] = gpus[best] - a * jg
         slots[best] = slots[best] - a
-        occ0[best] = torch.maximum(occ0[best], a * ju)
+        if groups is None:
+            occ0[best] = torch.maximum(occ0[best], a * ju.to(torch.float32))
+        else:
+            groups[g, best] = groups[g, best] | (assigned & ju)
     hosts_out = hosts_packed.clone()
     hosts_out[H_MEM], hosts_out[H_CPUS], hosts_out[H_GPUS] = mem, cpus, gpus
     hosts_out[H_SLOTS], hosts_out[H_OCC0] = slots, occ0
-    return job_host, hosts_out
+    if occ is None:
+        return job_host, hosts_out
+    return job_host, hosts_out, groups.to(occ.dtype)
 
 
 # ---- best_host: one dense round ---------------------------------------
@@ -245,12 +317,24 @@ def jitter(rows: int, cols: int, spread: float, device) -> torch.Tensor:
             * torch.tensor(spread, dtype=torch.float32, device=device))
 
 
-def best_host_ok(num_groups: int) -> bool:
-    """Eligibility gate of the dense-round kernel: single-group coupling
-    only (the kernel folds group-0 unique occupancy in, as the TPU
-    kernel does; the multi-group gather stays on the plain path).
+def best_host(jobs_packed: torch.Tensor, hosts_packed: torch.Tensor,
+              forbidden: torch.Tensor, bonus: torch.Tensor | None = None,
+              spread: float = 0.0, occ: torch.Tensor | None = None):
+    """Fused feasibility + fitness + argmax over hosts, for every row.
 
-    The TPU gates do not carry over. `N % bn`, `H % bh` and `H % 128`
+    jobs_packed: (N, 8) f32 from pack_jobs (J_GROUP read only with
+    `occ`); hosts_packed: (16, H) f32 from pack_hosts; forbidden: (N, H)
+    uint8 or bool (nonzero = excluded); bonus: optional (N, H) f32
+    additive fitness; spread: the jitter amplitude (0 = none); occ: None
+    (one group: the host stack's H_OCC0 row) or the (G, H) bool/uint8
+    occupancy of G groups. Returns (best_fit (N,) f32, best_host (N,)
+    i32): the first maximum of each row and its host, or (-1.0, -1) when
+    no host is feasible. CUDA tensors launch the kernel; CPU tensors run
+    the plain version.
+
+    The TPU kernel's gates do not carry over. Its single group came from
+    folding group-0 occupancy into the host stack; the CUDA kernel reads
+    a (G, H) occupancy beside the mask. `N % bn`, `H % bh` and `H % 128`
     (pallas_match.py:304-309) and the `_D`/`H` divisibility conditions
     of match.py:410-413 came from BlockSpec tiles of (8, 128)-aligned
     VMEM blocks; the CUDA kernel tiles rows and hosts itself and masks
@@ -259,59 +343,44 @@ def best_host_ok(num_groups: int) -> bool:
     (i32 host ids, i64 mask offsets, at most 65,535 tiles of 128 hosts),
     checked by the wrapper.
     """
-    return num_groups == 1
-
-
-def best_host(jobs_packed: torch.Tensor, hosts_packed: torch.Tensor,
-              forbidden: torch.Tensor, bonus: torch.Tensor | None = None,
-              spread: float = 0.0):
-    """Fused feasibility + fitness + argmax over hosts, for every row.
-
-    jobs_packed: (N, 8) f32 from pack_jobs; hosts_packed: (16, H) f32
-    from pack_hosts; forbidden: (N, H) uint8 or bool (nonzero =
-    excluded); bonus: optional (N, H) f32 additive fitness; spread: the
-    jitter amplitude (0 = none). Returns (best_fit (N,) f32, best_host
-    (N,) i32): the first maximum of each row and its host, or
-    (-1.0, -1) when no host is feasible. CUDA tensors launch the
-    kernel; CPU tensors run the plain version.
-    """
     dev = jobs_packed.device
     if dev.type == "cpu":
         return best_host_plain(jobs_packed, hosts_packed, forbidden, bonus,
-                               spread)
+                               spread, occ)
     if dev.type != "cuda":
         raise ValueError(f"best_host: unsupported device {dev}")
     return _best_host_cuda(jobs_packed, hosts_packed, forbidden, bonus,
-                           spread)
+                           spread, occ)
 
 
-def _check_best(jobs_packed, hosts_packed, forb, bonus):
+def _check_best(jobs_packed, hosts_packed, forb, bonus, occ=None):
     N = jobs_packed.shape[0]
     H = hosts_packed.shape[1]
     if jobs_packed.shape != (N, JOB_COLS) or \
             hosts_packed.shape != (HOST_ROWS, H) or forb.shape != (N, H) \
-            or (bonus is not None and bonus.shape != (N, H)):
+            or (bonus is not None and bonus.shape != (N, H)) \
+            or (occ is not None and (occ.dim() != 2 or occ.shape[1] != H
+                                     or occ.shape[0] < 1)):
         raise ValueError(
             f"best_host shapes: jobs {tuple(jobs_packed.shape)}, hosts "
             f"{tuple(hosts_packed.shape)}, forbidden {tuple(forb.shape)}, "
-            f"bonus {None if bonus is None else tuple(bonus.shape)}")
+            f"bonus {None if bonus is None else tuple(bonus.shape)}, occ "
+            f"{None if occ is None else tuple(occ.shape)}")
     if jobs_packed.dtype != torch.float32 or \
             hosts_packed.dtype != torch.float32 or \
             (bonus is not None and bonus.dtype != torch.float32):
         raise TypeError("best_host: jobs, hosts and bonus must be float32")
-    if forb.dtype not in (torch.uint8, torch.bool):
-        raise TypeError(f"best_host: forbidden must be uint8/bool, got "
-                        f"{forb.dtype}")
+    _check_occ("best_host", forb, occ)
     return N, H
 
 
-def _best_host_cuda(jobs_packed, hosts_packed, forb, bonus, spread):
+def _best_host_cuda(jobs_packed, hosts_packed, forb, bonus, spread, occ):
     from cook_tpu_torch.kernels import build
 
-    N, H = _check_best(jobs_packed, hosts_packed, forb, bonus)
+    N, H = _check_best(jobs_packed, hosts_packed, forb, bonus, occ)
     dev = jobs_packed.device
-    ins = [jobs_packed, hosts_packed, forb] + \
-        ([] if bonus is None else [bonus])
+    ins = [t for t in (jobs_packed, hosts_packed, forb, bonus, occ)
+           if t is not None]
     if any(t.device != dev for t in ins):
         raise ValueError("best_host: all inputs must be on one device")
     if not all(t.is_contiguous() for t in ins):
@@ -326,22 +395,19 @@ def _best_host_cuda(jobs_packed, hosts_packed, forb, bonus, spread):
     # each row's argmax slot and the kernel's CTA counter (zeroed by the
     # launch function on the stream)
     scratch = torch.empty(N + 1, dtype=torch.int64, device=dev)
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.best_host_launch(
-            ctypes.c_void_p(jobs_packed.data_ptr()),
-            ctypes.c_void_p(hosts_packed.data_ptr()),
-            ctypes.c_void_p(forb.data_ptr()),
-            ctypes.c_void_p(None if bonus is None else bonus.data_ptr()),
-            ctypes.c_void_p(best_fit.data_ptr()),
-            ctypes.c_void_p(best_idx.data_ptr()),
-            ctypes.c_void_p(scratch.data_ptr()),
-            ctypes.c_int(N), ctypes.c_int(H), ctypes.c_float(spread),
-            ctypes.c_void_p(stream))
+            _ptr(jobs_packed), _ptr(hosts_packed), _ptr(forb), _ptr(bonus),
+            _ptr(occ), _ptr(best_fit), _ptr(best_idx), _ptr(scratch),
+            ctypes.c_int(N), ctypes.c_int(H),
+            ctypes.c_int(1 if occ is None else occ.shape[0]),
+            ctypes.c_float(spread), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"best_host kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES["best_host"] += 1
+    LAUNCHES["best_host" if occ is None else "best_host/groups"] += 1
     return best_fit, best_idx
 
 
@@ -370,11 +436,14 @@ def best_host_division_mismatches(b0: int = 0, nb: int = 1 << 23) -> int:
 
 
 def best_host_feasible(jobs_packed: torch.Tensor, hosts_packed: torch.Tensor,
-                       forbidden: torch.Tensor) -> torch.Tensor:
+                       forbidden: torch.Tensor,
+                       occ: torch.Tensor | None = None) -> torch.Tensor:
     """(N, H) bool: the (row, host) pairs best_host scores — host valid
     with slots left, not forbidden, mem/cpus fit within 1e-6, the
-    gpu-host rule, no group-0 unique clash, row active (the TPU kernel's
-    mask, pallas_match.py:93-105)."""
+    gpu-host rule, no unique clash (the H_OCC0 row, or the row's group's
+    row of `occ`), row active (the TPU kernel's mask,
+    pallas_match.py:93-105; the XLA dense round's group gather,
+    match.py:676-678)."""
     def col(c):
         return jobs_packed[:, c:c + 1]
 
@@ -388,28 +457,32 @@ def best_host_feasible(jobs_packed: torch.Tensor, hosts_packed: torch.Tensor,
         & (row(H_CPUS) + EPS >= col(J_CPUS))
     ok = ok & torch.where(jg > 0, is_gpu & (row(H_GPUS) + EPS >= jg),
                           ~is_gpu)
-    return ok & ~((col(J_UNIQUE) > 0) & (row(H_OCC0) > 0)) \
-        & (col(J_ACTIVE) > 0)
+    if occ is None:
+        occupied = row(H_OCC0) > 0
+    else:
+        g = torch.clamp(jobs_packed[:, J_GROUP], 0, occ.shape[0] - 1)
+        occupied = occ[g.long()] != 0
+    return ok & ~((col(J_UNIQUE) > 0) & occupied) & (col(J_ACTIVE) > 0)
 
 
 def best_host_plain(jobs_packed: torch.Tensor, hosts_packed: torch.Tensor,
                     forbidden: torch.Tensor,
-                    bonus: torch.Tensor | None = None, spread: float = 0.0):
+                    bonus: torch.Tensor | None = None, spread: float = 0.0,
+                    occ: torch.Tensor | None = None):
     """Plain PyTorch version of the kernel, on any device: the (N, H)
     masked fitness materialised, then a first-maximum argmax per row.
     Same f32 operations in the same order as the kernel: division-form
     fitness, `0.5 * (f_mem + f_cpu)`, then `+ bonus`, then `+ noise`
     (only when spread is nonzero, as in the TPU kernel)."""
-    N, H = _check_best(jobs_packed, hosts_packed, forbidden, bonus)
-    ok = best_host_feasible(jobs_packed, hosts_packed, forbidden)
+    N, H = _check_best(jobs_packed, hosts_packed, forbidden, bonus, occ)
+    ok = best_host_feasible(jobs_packed, hosts_packed, forbidden, occ)
     jm = jobs_packed[:, J_MEM:J_MEM + 1]
     jc = jobs_packed[:, J_CPUS:J_CPUS + 1]
     mem, cpus = hosts_packed[H_MEM][None, :], hosts_packed[H_CPUS][None, :]
     cap_mem = hosts_packed[H_CAP_MEM][None, :]
     cap_cpus = hosts_packed[H_CAP_CPUS][None, :]
-    f_mem = torch.where(cap_mem > 0, (cap_mem - mem + jm) / cap_mem, 0.0)
-    f_cpu = torch.where(cap_cpus > 0, (cap_cpus - cpus + jc) / cap_cpus, 0.0)
-    fit = 0.5 * (f_mem + f_cpu)
+    fit = 0.5 * (_frac(cap_mem - mem + jm, cap_mem)
+                 + _frac(cap_cpus - cpus + jc, cap_cpus))
     if bonus is not None:
         fit = fit + bonus
     if spread:

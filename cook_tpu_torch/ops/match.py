@@ -7,15 +7,15 @@ constraints, depleting host resources as it goes (Fenzo's
 
   match_scan    the exact sequential walk. `_scan_core` runs it as one
                 hand-written CUDA kernel (`fused_match.exact_scan`) when
-                `use_kernel` is set, the batch has a single placement
-                group and no fitness bonus — the reference's own
-                branching (match.py:304-321) — and the plain
-                `_scan_assign` loop otherwise.
+                `use_kernel` is set, whatever the groups and the bonus:
+                the reference's XLA scan (match.py:135-172, its default
+                route) in one launch; without `use_kernel` the plain
+                `_scan_assign` loop.
   match_rounds  the batched matcher for large batches: an exact head
                 through `_scan_core`, water-fill window rounds, pairing
                 rounds, and dense rounds whose (D, H) score + argmax is
                 the `fused_match.best_host` kernel when `use_kernel` is
-                set and the batch has a single placement group.
+                set, whatever the groups and the bonus.
 
 The reference's pure, jitted closures become eager PyTorch: `.at[].set(
 mode="drop")` scatters write into a buffer with one sink slot, and each
@@ -107,8 +107,8 @@ def _feasible(job_mem, job_cpus, job_gpus, mem_left, cpus_left, gpus_left,
 def _scan_assign(jobs: Jobs, hosts: Hosts, forbidden, bonus,
                  num_groups: int, carry):
     """Sequential greedy core: one Python-loop step per job over carry
-    (mem_left, cpus_left, gpus_left, slots_left, group_occ). The plain
-    path for num_groups > 1 or a fitness bonus. Returns (carry, job_host)."""
+    (mem_left, cpus_left, gpus_left, slots_left, group_occ). The route
+    of `use_kernel=False` callers. Returns (carry, job_host)."""
     mem_left, cpus_left, gpus_left, slots_left, group_occ = carry
     group_occ = group_occ.clone()
     S = jobs.mem.shape[0]
@@ -235,27 +235,31 @@ def _scan_assign_candidates(jobs: Jobs, hosts: Hosts, forbidden, bonus,
 
 
 def _scan_core(jobs: Jobs, hosts: Hosts, forbidden, bonus,
-               num_groups: int, carry, use_kernel: bool = False,
-               bonus_zero: bool = False):
-    """Exact sequential greedy (the Fenzo walk). With `use_kernel`,
-    single-group coupling and no fitness bonus, the whole walk is ONE
-    launch of the hand-written exact_scan kernel (its plain PyTorch
-    version for CPU tensors); everything else takes `_scan_assign`."""
+               num_groups: int, carry, use_kernel: bool = False):
+    """Exact sequential greedy (the Fenzo walk). With `use_kernel` the
+    whole walk is ONE launch of the hand-written exact_scan kernel (its
+    plain PyTorch version for CPU tensors), for any number of groups and
+    with or without a bonus (None = no bonus); otherwise `_scan_assign`.
+    Returns (carry, job_host)."""
     S = jobs.mem.shape[0]
     H = hosts.mem.shape[0]
-    if use_kernel and bonus_zero and fused_match.exact_scan_ok(
-            S, H, num_groups):
+    if use_kernel and fused_match.exact_scan_ok(S, H, num_groups):
         mem0, cpus0, gpus0, slots0, occ = carry
         jp = fused_match.pack_jobs(jobs.mem, jobs.cpus, jobs.gpus,
-                                   jobs.valid, jobs.unique_group)
+                                   jobs.valid, jobs.unique_group, jobs.group)
         hp = fused_match.pack_hosts(mem0, cpus0, gpus0, hosts.cap_mem,
                                     hosts.cap_cpus, hosts.cap_gpus, slots0,
                                     hosts.valid, occ[0])
-        jh, hout = fused_match.exact_scan(jp, hp, forbidden)
+        if num_groups == 1:
+            jh, hout = fused_match.exact_scan(jp, hp, forbidden,
+                                              bonus=bonus)
+            new_occ = hout[fused_match.H_OCC0:fused_match.H_OCC0 + 1] > 0
+        else:
+            jh, hout, new_occ = fused_match.exact_scan(jp, hp, forbidden,
+                                                       occ=occ, bonus=bonus)
         new_carry = (hout[fused_match.H_MEM], hout[fused_match.H_CPUS],
                      hout[fused_match.H_GPUS],
-                     hout[fused_match.H_SLOTS].to(torch.int32),
-                     hout[fused_match.H_OCC0:fused_match.H_OCC0 + 1] > 0)
+                     hout[fused_match.H_SLOTS].to(torch.int32), new_occ)
         return new_carry, jh
     if bonus is None:
         bonus = torch.zeros(forbidden.shape, dtype=torch.float32,
@@ -271,8 +275,8 @@ def match_scan(jobs: Jobs, hosts: Hosts, forbidden: torch.Tensor,
     forbidden: (N, H) bool per-(job, host) hard-constraint exclusions.
     num_groups: upper bound on dense group ids in this batch.
     bonus: optional (N, H) f32 >= 0 additive fitness term.
-    use_kernel: route through the exact_scan CUDA kernel when eligible
-    (num_groups == 1, no bonus); the reference's `use_pallas`.
+    use_kernel: route through the exact_scan CUDA kernel (any groups,
+    any bonus); off, the plain `_scan_assign` loop.
     """
     H = hosts.mem.shape[0]
     group_occ = torch.zeros((num_groups, H), dtype=torch.bool,
@@ -280,7 +284,7 @@ def match_scan(jobs: Jobs, hosts: Hosts, forbidden: torch.Tensor,
     carry = (hosts.mem, hosts.cpus, hosts.gpus, hosts.task_slots, group_occ)
     (mem_left, cpus_left, gpus_left, slots_left, _), job_host = _scan_core(
         jobs, hosts, forbidden, bonus, num_groups, carry,
-        use_kernel=use_kernel, bonus_zero=bonus is None)
+        use_kernel=use_kernel)
     return MatchResult(job_host, mem_left, cpus_left, gpus_left, slots_left)
 
 
@@ -405,17 +409,16 @@ def match_rounds(jobs: Jobs, hosts: Hosts, forbidden: torch.Tensor,
     head job the exact scan refused is unservable this cycle and sits
     out the window and pairing rounds.
 
-    use_kernel: the reference's `use_pallas` — the head is the
-    exact_scan kernel (single group, no bonus) and each dense round's
-    (D, H) score + argmax is the best_host kernel (single group). Off,
-    the head is `_scan_assign` and the dense round the reference's XLA
-    formula in plain PyTorch. A bonus forces spread to 0.
+    use_kernel: the head is the exact_scan kernel and each dense round's
+    (D, H) score + argmax is the best_host kernel, with the batch's
+    groups and bonus. Off, the head is `_scan_assign` and the dense round
+    the reference's XLA formula in plain PyTorch. A bonus forces spread
+    to 0.
     """
     N = jobs.mem.shape[0]
     H = hosts.mem.shape[0]
     dev = hosts.mem.device
     G = num_groups
-    kernel_dense = use_kernel and fused_match.best_host_ok(num_groups)
 
     # water-fill serves cpu/mem-only jobs with no per-host exclusions;
     # gpu jobs take the gpu window; constrained jobs, and all jobs under
@@ -531,15 +534,16 @@ def match_rounds(jobs: Jobs, hosts: Hosts, forbidden: torch.Tensor,
 
         c_forb = forbidden[srcc] | ~in_use[:, None]
         c_bonus = None if bonus is None else bonus[srcc]
-        if kernel_dense:
+        if use_kernel:
             jp = fused_match.pack_jobs(c_mem, c_cpus, c_gpus, in_use,
-                                       c_unique)
+                                       c_unique, c_group)
             hp = fused_match.pack_hosts(
                 mem_left, cpus_left, gpus_left, hosts.cap_mem,
                 hosts.cap_cpus, hosts.cap_gpus, slots_left, hosts.valid,
                 group_occ[0])
-            best_fit, best = fused_match.best_host(jp, hp, c_forb, c_bonus,
-                                                   spread=spread)
+            best_fit, best = fused_match.best_host(
+                jp, hp, c_forb, c_bonus, spread=spread,
+                occ=None if G == 1 else group_occ)
             choice = torch.clamp(best.long(), 0, H - 1)
             has_feasible = best_fit > -0.5
         else:
@@ -583,7 +587,7 @@ def match_rounds(jobs: Jobs, hosts: Hosts, forbidden: torch.Tensor,
         head = Jobs(*(f[:S] for f in jobs))
         carry, head_hosts = _scan_core(
             head, hosts, forbidden[:S], None if bonus is None else bonus[:S],
-            G, state[1:], use_kernel=use_kernel, bonus_zero=bonus is None)
+            G, state[1:], use_kernel=use_kernel)
         head_hosts = head_hosts.to(torch.int32)
         state = (torch.cat([head_hosts, state[0][S:]]), *carry)
         hopeless0[:S] = head.valid & (head_hosts == NO_HOST)

@@ -1,12 +1,16 @@
 """Where the time of one resident cycle goes, on the GPU.
 
     python -m cook_tpu_torch.profile_cycle [--batched] [--cycles 12]
+                                           [--groups | --locality]
                                            [--trace DIR]
 
 Builds the 100k-pending x 10k-host resident workload of chip_smoke.py
 (entry.resident_workload defaults: C=1024, the sequential path; with
 `--batched` C=8192, the coordinator's match_rounds path with its exact
-head and dense rounds), runs 3 warm-up cycles, then:
+head and dense rounds; with `--groups` 10% of the pending jobs in
+host-placement-unique groups of 8, G = 2,048; with `--locality` 20% with
+a data-locality bonus row: chip_smoke.py's grouped and locality cells),
+runs 3 warm-up cycles, then:
 
 1. `--cycles` cycles timed on the host clock per phase (ship = pack and
    upload the deltas; cycle = device cycle through the prefix readback;
@@ -43,6 +47,7 @@ import torch
 
 from cook_tpu_torch.entry import resident_workload
 from cook_tpu_torch.kernels import build
+from cook_tpu_torch.ops import fused_match as fm
 
 
 def _dev_time(evt) -> float:
@@ -153,6 +158,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--batched", action="store_true",
                     help="C=8192: profile the match_rounds cycle")
     ap.add_argument("--trace", default=None)
+    cell = ap.add_mutually_exclusive_group()
+    cell.add_argument("--groups", action="store_true",
+                      help="10%% of pending jobs in unique groups of 8")
+    cell.add_argument("--locality", action="store_true",
+                      help="20%% of pending jobs with a bonus row")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_cycle needs a CUDA device")
@@ -162,7 +172,10 @@ def main(argv=None) -> dict:
         check=True).stdout.strip().splitlines()[0]
     build.build_all()
     dev = torch.device("cuda", 0)
-    w = resident_workload(device=dev, C=8192 if a.batched else 1024)
+    knobs = ({"groups": (0.1, 8)} if a.groups else
+             {"locality": 0.2} if a.locality else {})
+    w = resident_workload(device=dev, C=8192 if a.batched else 1024,
+                          **knobs)
     for _ in range(3):
         w.cycle()
     phases = {}
@@ -173,7 +186,11 @@ def main(argv=None) -> dict:
     torch.cuda.synchronize()
 
     n_prof = 4
+    before = dict(fm.LAUNCHES)
     prof, kernels, syncs, wall_ms = profile_calls(w.cycle, n_prof)
+    match_launches = {k: (v - before[k]) / n_prof
+                      for k, v in fm.LAUNCHES.items()
+                      if k.startswith(("exact_scan", "best_host"))}
     dev_ms = sum(k[1] for k in kernels)
     scan_ms = sum(k[1] for k in kernels if "exact_scan" in k[0])
     bh = [k for k in kernels if "best_host" in k[0]]
@@ -190,6 +207,9 @@ def main(argv=None) -> dict:
         "card": card,
         "C": w.C,
         "path": "batched" if a.batched else "sequential",
+        "knobs": {k: list(v) if isinstance(v, tuple) else v
+                  for k, v in knobs.items()},
+        "num_groups": w.num_groups,
         "kind": torch.cuda.get_device_name(0),
         "phase_median_ms": {k: float(np.median(v))
                             for k, v in phases.items()},
@@ -205,6 +225,7 @@ def main(argv=None) -> dict:
         "best_host_ms_per_cycle": bh_ms,
         "best_host_calls_per_cycle": sum(k[2] for k in bh),
         "best_host_share_of_device": bh_ms / dev_ms if dev_ms else None,
+        "match_launches_per_cycle": match_launches,
         "blocked_cumsum_ms_per_cycle": sum(k[1] for k in cs),
         "blocked_cumsum_calls_per_cycle": sum(k[2] for k in cs),
         "ordered_scatter_ms_per_cycle": sum(k[1] for k in osc),

@@ -3,11 +3,16 @@
     python -m cook_tpu_torch.time_kernels --kernel KERNEL [--root DIR]
                                           [--reps 50]
 
-KERNEL is best_host, blocked_cumsum, ordered_scatter or sum_ordered.
+KERNEL is exact_scan, best_host, blocked_cumsum, ordered_scatter or
+sum_ordered.
 Times the `cook_tpu_torch` package under DIR (default: this checkout;
 an unpacked `git archive` of another commit compares two versions, one
 process each, on the same card) on inputs made by this checkout's
 chip_smoke.py, the same for both:
+- exact_scan: the one-group walk without a bonus on the mixed workload,
+  "main" (S=1024 jobs x H=16384 hosts, the sequential cycle's call),
+  "head" (its first 256 jobs, the batched head's) and "chain_floor"
+  (S=1024 x H = cluster x 32: one warp of hosts a CTA);
 - best_host: D=1024 rows x H=16384 hosts of the mixed workload, "main"
   (no bonus, spread 0.2: the dense rounds' call), "bonus" (U(0, 0.5),
   spread 0) and "ieee_division" (one host of every 128 given a capacity
@@ -44,7 +49,8 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parents[1]
-KERNELS = ("best_host", "blocked_cumsum", "ordered_scatter", "sum_ordered")
+KERNELS = ("exact_scan", "best_host", "blocked_cumsum", "ordered_scatter",
+           "sum_ordered")
 
 
 def _events_ms(fn, reps: int, sleep: bool) -> float:
@@ -89,7 +95,18 @@ def cases(kernel, smoke, dev):
     from cook_tpu_torch.ops import segments as seg
 
     out = {}
-    if kernel == "best_host":
+    if kernel == "exact_scan":
+        S, H = smoke.S_MAIN, smoke.H_MAIN
+        jp, hp, forb = smoke.scan_problem(np.random.default_rng(0), S, H,
+                                          dev)
+        floor = smoke.scan_problem(np.random.default_rng(4), S,
+                                   fm.exact_scan_cluster() * 32, dev)
+        head = (jp[:256].contiguous(), hp, forb[:256].contiguous())
+        for label, a in (("main", (jp, hp, forb)), ("head", head),
+                         ("chain_floor", floor)):
+            call = lambda a=a: fm.exact_scan(*a)
+            out[label] = (call, lambda a=a: fm.exact_scan_plain(*a), call)
+    elif kernel == "best_host":
         D, H = smoke.D_MAIN, smoke.H_MAIN
         jp, hp, forb = smoke.scan_problem(np.random.default_rng(1), D, H,
                                           dev)

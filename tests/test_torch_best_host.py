@@ -50,12 +50,15 @@ def packed(p):
     return np.array(jp), np.array(hp)
 
 
-def port(p, use_bonus, spread):
+def port(p, use_bonus, spread, occ=None):
     jp, hp = packed(p)
+    if occ is not None:
+        jp[:, fused_match.J_GROUP] = p["group"]
     fit, idx = fused_match.best_host(
         torch.from_numpy(jp), torch.from_numpy(hp),
         torch.from_numpy(p["forb"].astype(np.uint8)),
-        torch.from_numpy(p["bonus"]) if use_bonus else None, spread=spread)
+        torch.from_numpy(p["bonus"]) if use_bonus else None, spread=spread,
+        occ=None if occ is None else torch.from_numpy(occ))
     assert fit.dtype == torch.float32 and idx.dtype == torch.int32
     return idx.numpy(), fit.numpy()
 
@@ -69,9 +72,10 @@ def pallas(p, use_bonus, spread, block_n=8, block_h=128):
     return np.asarray(idx), np.asarray(fit)
 
 
-def xla_dense(p, use_bonus, spread):
+def xla_dense(p, use_bonus, spread, occ=None):
     """The XLA dense round's score and argmax (match.py:667-700) over
-    every row, jitter keyed on the row index."""
+    every row, jitter keyed on the row index; with `occ` (G, H) each
+    unique row checks its group's row, clip(group, 0, G - 1)."""
     n, h = p["forb"].shape
     a = {k: jnp.asarray(v) for k, v in p.items()}
     col = lambda k: a[k][:, None]
@@ -80,7 +84,9 @@ def xla_dense(p, use_bonus, spread):
                           row("mem_left"), row("cpus_left"),
                           row("gpus_left"), row("cap_gpus"), row("hvalid"),
                           row("slots"), a["forb"])
-    ok &= col("active") & ~(col("unique") & row("occ0"))
+    occupied = (row("occ0") if occ is None else jnp.asarray(occ)[
+        jnp.clip(a["group"], 0, occ.shape[0] - 1)])
+    ok &= col("active") & ~(col("unique") & occupied)
     fit = jmatch._fitness(col("job_mem"), col("job_cpus"), row("mem_left"),
                           row("cpus_left"), row("cap_mem"), row("cap_cpus"))
     if use_bonus:
@@ -185,16 +191,47 @@ def test_best_host_odd_shapes(n, h):
 
 
 def test_best_host_gate_and_checks():
-    assert fused_match.best_host_ok(1)
-    assert not fused_match.best_host_ok(4)
+    """No gate is left (any groups take the kernel); the wrapper checks
+    shapes and types, the occupancy's too."""
+    assert not hasattr(fused_match, "best_host_ok")
     jp = torch.zeros((8, fused_match.JOB_COLS))
     hp = torch.zeros((fused_match.HOST_ROWS, 64))
     with pytest.raises(ValueError, match="shapes"):
         fused_match.best_host(jp, hp, torch.zeros((8, 63), dtype=torch.uint8))
     with pytest.raises(TypeError, match="forbidden"):
         fused_match.best_host(jp, hp, torch.zeros((8, 64)))
+    forb = torch.zeros((8, 64), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="shapes"):
+        fused_match.best_host(jp, hp, forb,
+                              occ=torch.zeros((4, 63), dtype=torch.bool))
+    with pytest.raises(TypeError, match="occ"):
+        fused_match.best_host(jp, hp, forb, occ=torch.zeros((4, 64)))
     meta = [t.to("meta") for t in (jp, hp)]
     with pytest.raises(ValueError, match="unsupported device"):
         fused_match.best_host(*meta, torch.zeros((8, 64), dtype=torch.uint8,
                                                  device="meta"))
 
+
+
+@pytest.mark.parametrize("use_bonus", [False, True])
+@pytest.mark.parametrize("spread", [0.0, 0.2])
+@pytest.mark.parametrize("G", [4, 64])
+def test_best_host_groups_equals_xla_dense_round(G, spread, use_bonus):
+    """With a (G, H) occupancy, unique rows of groups -1..G+1 (clipped)
+    against the XLA dense round's group gather: best_host exact, best_fit
+    within rtol 1e-6 (and -1.0 where nothing is feasible). The host
+    stack's group-0 row (set here) is not read."""
+    p = problem(20 + G, n=40, h=300)
+    rng = np.random.default_rng(G)
+    p["group"] = rng.integers(-1, G + 2, 40).astype(np.int32)
+    p["unique"] = rng.random(40) < 0.6
+    occ = rng.random((G, 300)) < 0.3
+    ref_idx, ref_fit = xla_dense(p, use_bonus, spread, occ=occ)
+    idx, fit = port(p, use_bonus, spread, occ=occ)
+    np.testing.assert_array_equal(idx, ref_idx)
+    feas = ref_idx >= 0
+    np.testing.assert_allclose(fit[feas], ref_fit[feas], rtol=1e-6)
+    np.testing.assert_array_equal(fit[~feas], -1.0)
+    assert feas.sum() > 0
+    g = np.clip(p["group"], 0, G - 1)
+    assert not (p["unique"][feas] & occ[g[feas], idx[feas]]).any()

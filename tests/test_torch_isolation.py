@@ -292,6 +292,69 @@ def test_exact_scan_cluster_edges_on_cuda():
 
 
 @pytest.mark.cuda
+def test_exact_scan_group_and_bonus_routes_on_cuda():
+    """The walk's bonus and groups routes against their plain versions at
+    chip_smoke.py's edges (one job, S past the bonus route's job tile,
+    every host on chip and beyond, plain loads, 100,000 hosts with 64
+    groups, one unique group): job_host, the host stack and the (G, H)
+    occupancy bit for bit, one launch each on its route's counter."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs on the GPU machine only")
+    import chip_smoke
+    from cook_tpu_torch.ops import fused_match as fm
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    for label, S, H, G, with_bonus, off in chip_smoke.scan_route_edges(
+            dev, fm.exact_scan_cluster()):
+        jp, hp, forb, occ, bonus = chip_smoke.group_problem(
+            rng, S, H, G, with_bonus, dev)
+        if off:
+            bonus = chip_smoke.misaligned(bonus, 4)
+        name = ("exact_scan/groups" if occ is not None else
+                "exact_scan/bonus" if bonus is not None else "exact_scan")
+        before = fm.LAUNCHES[name]
+        got = fm.exact_scan(jp, hp, forb, occ=occ, bonus=bonus)
+        want = fm.exact_scan_plain(jp, hp, forb, occ=occ, bonus=bonus)
+        torch.cuda.synchronize()
+        assert fm.LAUNCHES[name] == before + 1, label
+        assert torch.equal(got[0], want[0]), label
+        assert torch.equal(got[1].view(torch.int32),
+                           want[1].view(torch.int32)), label
+        if occ is not None:
+            assert torch.equal(got[2], want[2]), label
+
+
+@pytest.mark.cuda
+def test_best_host_groups_route_on_cuda():
+    """best_host with a (G, H) occupancy against its plain version: G in
+    {4, 2048}, with and without a bonus and the jitter, ragged shapes and
+    a misaligned occupancy (byte loads)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs on the GPU machine only")
+    import chip_smoke
+    from cook_tpu_torch.ops import fused_match as fm
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4)
+    for N, H, G, off in ((256, 4096, 4, False), (1024, 16384, 2048, False),
+                         (33, 515, 64, False), (200, 2048, 64, True)):
+        jp, hp, forb, occ, bonus = chip_smoke.group_problem(rng, N, H, G,
+                                                            True, dev)
+        if off:
+            occ = chip_smoke.misaligned(occ, 1)
+        for b, spread in ((None, 0.2), (bonus, 0.0), (bonus, 0.2)):
+            before = fm.LAUNCHES["best_host/groups"]
+            got = fm.best_host(jp, hp, forb, b, spread, occ=occ)
+            want = fm.best_host_plain(jp, hp, forb, b, spread, occ=occ)
+            torch.cuda.synchronize()
+            assert fm.LAUNCHES["best_host/groups"] == before + 1
+            assert torch.equal(got[1], want[1]), (N, H, G)
+            assert torch.equal(got[0].view(torch.int32),
+                               want[0].view(torch.int32)), (N, H, G)
+
+
+@pytest.mark.cuda
 def test_cuda_tensor_never_reaches_plain_version(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: runs on the GPU machine only")

@@ -194,8 +194,7 @@ def test_state_round_trip_keeps_dtypes():
 
 
 def _bonus_state(seed=4):
-    """A small ResidentState with the data-locality bonus lane on and
-    a unique-placement group (the kernel-ineligible resident path)."""
+    """A small ResidentState with the data-locality bonus lane on."""
     rng = np.random.default_rng(seed)
     P, R, H, U = 256, 128, 64, 6
     rs = tres.ResidentState(P, R, H, forb_cap=32, bonus_cap=16,
@@ -250,7 +249,7 @@ def test_device_cycle_with_bonus_equals_jax():
                                       err_msg=name)
     _assert_state_equal(jstate, rs.state)
     assert int(tout[4]) == 48 and int(tout[3]) > 0
-    # a bonus makes the call kernel-ineligible: the plain loop ran
+    # CPU tensors: the walk kernel's plain version ran, bonus and all
     assert fused_match.LAUNCHES["exact_scan"] == 0
 
 

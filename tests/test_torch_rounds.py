@@ -16,9 +16,9 @@ positions < head_exact have no head-of-line inversion.
 With the kernels on, the port is held against `use_pallas=True,
 pallas_interpret=True` at shapes JAX's dense-round gate takes (H a
 multiple of 128, and H <= 1024 or a multiple of 1024). JAX's exact head
-then runs `_scan_assign` (division form) below H = 1024, the port's runs
-exact_scan's plain version (reciprocal form): host capacities are powers
-of two there, where the two forms are equal.
+then runs `_scan_assign` below H = 1024, the port's exact_scan's plain
+version: both in the division form. With groups or a bonus JAX's routes
+are its XLA ones, the port's still the kernels' plain versions.
 """
 import numpy as np
 import pytest
@@ -161,11 +161,32 @@ def test_match_rounds_kernel_h1024():
 
 
 def test_match_rounds_kernel_gate_groups():
-    """num_groups > 1 keeps both kernels off, in the port and in JAX."""
+    """num_groups > 1: the port's kernels (their plain versions here)
+    against JAX's XLA head and dense rounds (its Pallas gates refuse
+    groups)."""
     jobs, hosts, forb, bonus = problem(70, "dense", h=256, groups=4)
     jb, hb, ref, got = run_both(jobs, hosts, forb, bonus, use_kernel=True,
                                 head_exact=64, num_groups=4)
     check(jb, hb, forb, ref, got, 64)
+
+
+@pytest.mark.parametrize("use_bonus", [False, True])
+@pytest.mark.parametrize("groups", [4, 64])
+def test_match_rounds_kernel_groups_bonus_equals_xla(groups, use_bonus):
+    """use_kernel=True with G groups (ids -1..G-1, 70% of the grouped
+    unique) and a bonus or none, head_exact 64: the exact head through
+    exact_scan's plain version with its (G, H) occupancy, the dense rounds
+    through best_host's with the same, against JAX's XLA routes."""
+    jobs, hosts, forb, bonus = problem(90 + groups, "bonus" if use_bonus
+                                       else "dense", h=256, groups=groups)
+    jb, hb, ref, got = run_both(jobs, hosts, forb, bonus, use_kernel=True,
+                                head_exact=64, num_groups=groups)
+    check(jb, hb, forb, ref, got, 64)
+    jh = got.job_host.numpy()
+    grp, uniq = jobs["group"], jobs["unique_group"]
+    for g in range(groups):
+        on = jh[(grp == g) & uniq & (jh >= 0)]
+        assert len(on) == len(set(on.tolist())), g
 
 
 @pytest.mark.parametrize("kind", ["plain", "dense"])
