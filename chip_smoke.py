@@ -236,7 +236,35 @@
      them held against the above.
    Prints each path's host-clock and CUDA-event ms, and launches and
    host syncs a call or cycle.
-12. Prints timings as JSON: per cycle CUDA events from the delta upload
+12. bench.py's remaining device entry points, through bench_torch.py's
+   own functions (each prints its mode's JSON line; every launch counter
+   is set to 0 just before each and read just after):
+   - contended (bench.py's `contended`: the contended size mix at R =
+     10k, P = 100k, H = 10k, U = 500, C = 8,192): the audit-gated head
+     ladder's rung (there every considered job fits, so head 0 is
+     clean) and the head-256 floor; at that rung and at head 256 the
+     kernels' job_host / mat_idx / mat_host / why_code must equal the
+     same call with use_kernel=False (the walk and the dense rounds in
+     PyTorch) on the same card tensors, bit for bit, exact_scan launch
+     once where the head is above 0 and best_host once a dense round;
+     then the contended mix at bench.py's `small` shape (R = 1k, P =
+     10k, H = 1k, U = 100, C = 2,048; tight hosts), where the ladder
+     must climb off head 0 and end at the CPU path's rung with its
+     inversions and job_host, and the same route check at that rung;
+   - stream (BASELINE config 5): 1,000,000 jobs placed, 32 cycles a
+     read, jobs/s and the host syncs a cycle;
+   - e2e-smoke (the reference's CI gate): 20k pending x 2k hosts, 4
+     pools x 4 store shards, depth 2, native consume, 60 cycles after
+     10, the 4 pools' match_cycles from 4 threads: acked_all_durable
+     and state_hash_match must be true and exact_scan launch for every
+     pool's cycle; then a deterministic run of BENCH_SMOKE_AGREE cycles
+     with the pools concurrent must launch each pool's (job uuid, host)
+     pairs, cycle by cycle, as the same run with the pools in turn,
+     both durable;
+   - e2e-batched (sequential_threshold 512: C = 1,024 through
+     match_rounds) at bench_e2e's 100k x 10k, BENCH_BATCHED_CYCLES
+     cycles: exact_scan once a cycle at least.
+13. Prints timings as JSON: per cycle CUDA events from the delta upload
    to the prefix readback, and the host clock around the whole cycle
    (including the workload's own bookkeeping); each kernel alone by CUDA
    events, exact_scan also at its dependency floor (S=1024 with one warp
@@ -350,6 +378,29 @@ GROUP_CELLS = (("grouped", {"groups": (0.1, 8)}),
                ("locality", {"locality": 0.2}))
 GROUP_AGREE, GROUP_WARMUP, GROUP_TIMED, GROUP_PLAIN = 1, 2, 20, 2
 GROUP_G = (4, 64, 2048)
+# 12. bench.py's remaining entry points through bench_torch.py: contended
+# (bench.py:2219-2224) at the headline width, stream (BASELINE config 5,
+# 1,000,000 jobs), e2e-smoke (the reference's CI gate: 20k pending x 2k
+# hosts, 4 pools x 4 store shards, depth 2, native consume, 60 cycles
+# after 10, the durability check) and e2e-batched (sequential_threshold
+# 512 at bench_e2e's 100k x 10k, BENCH_BATCHED_CYCLES after 5: cut from
+# 560 for the time limit)
+BENCH_CONTENDED = dict(R=10_000, P=100_000, H=10_000, U=500, C=8_192)
+BENCH_CONTENDED_CYCLES = 30
+# the contended mix at bench.py's `small` shape, where the hosts are
+# tight and the ladder climbs (tests/test_torch_bench_modes.py holds the
+# CPU path's ladder there equal to cook_tpu's)
+BENCH_CONTENDED_SMALL = dict(R=1_000, P=10_000, H=1_000, U=100, C=2_048)
+BENCH_STREAM_JOBS = 1_000_000
+BENCH_SMOKE = dict(P0=20_000, H=2_000, U=500)
+BENCH_SMOKE_KNOBS = dict(pools=4, store_shards=4, pipeline_depth=2,
+                         native=True)
+BENCH_SMOKE_CYCLES, BENCH_SMOKE_WARMUP = 60, 10
+# concurrent pools against pools in turn: through the first completions
+# (jobs run 10 s of the mock's clock, one a cycle)
+BENCH_SMOKE_AGREE = 13
+BENCH_BATCHED = dict(P0=100_000, H=10_000, U=500)
+BENCH_BATCHED_CYCLES, BENCH_BATCHED_WARMUP = 30, 5
 
 
 T_START = time.perf_counter()
@@ -1402,11 +1453,11 @@ def rebalance_phase(dev):
     return out, launches
 
 
-def _first_launch_difference(got, want) -> str:
+def _first_launch_difference(got, want, names=("card", "CPU path")) -> str:
     k = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
              min(len(got), len(want)))
     at = lambda x: x[k] if k < len(x) else None
-    return (f"launch {k}: card {at(got)} vs CPU path {at(want)} "
+    return (f"launch {k}: {names[0]} {at(got)} vs {names[1]} {at(want)} "
             f"({len(got)} vs {len(want)} launches)")
 
 
@@ -2467,6 +2518,188 @@ def parallel_phase(dev):
     return stats, launches
 
 
+def bench_phase(dev):
+    """12: bench.py's remaining device entry points through
+    bench_torch.py (see the module docstring). Returns ({mode: line},
+    {mode: launch counts of its run})."""
+    import torch
+
+    import bench_torch
+    from cook_tpu_torch import e2e
+    from cook_tpu_torch.entry import HEAD_LADDER
+    from cook_tpu_torch.ops import cycle as cycle_ops
+    from cook_tpu_torch.ops import fused_match as fm
+    from cook_tpu_torch.ops import match as match_ops
+
+    out, launches = {}, {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        fm.reset_launches()
+        line = fn()
+        launches[name] = dict(fm.LAUNCHES)
+        out[name] = {"s": time.perf_counter() - t0,
+                     "launches": launches[name], **line}
+        return line
+
+    def routes_agree(args, C, head, label):
+        """The rung through the kernels against use_kernel=False (the
+        walk and the dense rounds in PyTorch) on the same card tensors:
+        job_host, mat_idx, mat_host and why_code bit for bit; exact_scan
+        once where the head is above 0, best_host once a dense round."""
+        got, ran = {}, {}
+        for use_kernel in (True, False):
+            before = dict(fm.LAUNCHES)
+            dense = match_ops.ROUNDS["dense"]
+            r = cycle_ops.rank_and_match(
+                *args, num_considerable=C, sequential=False,
+                use_kernel=use_kernel, match_kw=(("head_exact", head),))
+            got[use_kernel] = {k: getattr(r, k).cpu().numpy() for k in (
+                "job_host", "mat_idx", "mat_host", "why_code", "n_matched")}
+            ran[use_kernel] = {k: fm.LAUNCHES[k] - before[k]
+                               for k in ("exact_scan", "best_host")}
+            ran[use_kernel]["dense_rounds"] = \
+                match_ops.ROUNDS["dense"] - dense
+        for k, v in got[True].items():
+            if not np.array_equal(v, got[False][k]):
+                fail(f"{label} head {head}: {k} of the kernels differs from "
+                     f"use_kernel=False at "
+                     f"{np.flatnonzero(v != got[False][k])[:8].tolist()}")
+        k_ran = ran[True]
+        if k_ran["exact_scan"] != (1 if head else 0) or \
+                k_ran["best_host"] != k_ran["dense_rounds"] or \
+                ran[False]["exact_scan"] or ran[False]["best_host"]:
+            fail(f"{label} head {head}: launches {ran}")
+        return {"head": head, "matched": int(got[True]["n_matched"]),
+                "kernel_vs_plain_route": "bit-equal", **k_ran}
+
+    # contended at the headline width: the ladder and its rung; the
+    # rung and the top rung (the head-256 floor) held against the plain
+    # route
+    line = run("contended", lambda: bench_torch.bench_cycle(
+        **BENCH_CONTENDED, label="100k-pending x 10k-offers, contended mix",
+        contended=True, cycles=BENCH_CONTENDED_CYCLES, device=dev))
+    head = line["adaptive_head_converged"]
+    if not line["matched_per_cycle"] or off_route(launches["contended"]):
+        fail(f"contended: {line['matched_per_cycle']} matched, launches "
+             f"{launches['contended']}")
+    args = bench_torch.cycle_setup(*(BENCH_CONTENDED[k] for k in "RPHU"),
+                                   dev, contended=True)
+    out["contended"]["routes"] = [
+        routes_agree(args, BENCH_CONTENDED["C"], h, "contended")
+        for h in sorted({head, HEAD_LADDER[-1]})]
+    del args
+
+    # ... and at the small shape, where the ladder climbs: the card's
+    # ladder ends where the CPU path's does, with its inversions and its
+    # job_host
+    def contended_small():
+        shape = [BENCH_CONTENDED_SMALL[k] for k in "RPHU"]
+        C = BENCH_CONTENDED_SMALL["C"]
+        card_args = bench_torch.cycle_setup(*shape, dev, contended=True)
+        rung, inv, res = bench_torch.head_ladder(card_args, C,
+                                                 use_kernel=True)
+        cpu_args = bench_torch.cycle_setup(*shape, torch.device("cpu"),
+                                           contended=True)
+        want = bench_torch.head_ladder(cpu_args, C, use_kernel=True)
+        if (rung, inv) != want[:2] or not np.array_equal(
+                res.job_host.cpu().numpy(), want[2].job_host.numpy()):
+            fail(f"contended small: the card's ladder ends at {rung} with "
+                 f"{inv} inversions, the CPU path's at {want[:2]}, or "
+                 f"job_host differs")
+        if not rung:
+            fail("contended small: the ladder ended at head 0")
+        return {"adaptive_head_converged": rung,
+                "head_window_inversions": inv,
+                "equal_to_cpu_path": True,
+                "shape": BENCH_CONTENDED_SMALL,
+                "routes": routes_agree(card_args, C, rung,
+                                       "contended small")}
+
+    small = run("contended_small", contended_small)
+    print(json.dumps({"bench_contended": {
+        "converged_head": head,
+        "head_window_inversions": line["head_window_inversions"],
+        "matched_per_cycle": line["matched_per_cycle"],
+        "routes": out["contended"]["routes"],
+        "small": small}}), flush=True)
+
+    # stream: 1,000,000 jobs at the headline width
+    line = run("stream", lambda: bench_torch.bench_stream(
+        total_jobs=BENCH_STREAM_JOBS, **{k: BENCH_CONTENDED[k]
+                                         for k in "RPHUC"}, device=dev))
+    if line["jobs_placed"] < BENCH_STREAM_JOBS:
+        fail(f"stream placed {line['jobs_placed']} jobs")
+    if not launches["stream"]["exact_scan"]:
+        fail(f"stream: launches {launches['stream']}")
+
+    # e2e-smoke at bench.py's shape, then its pools concurrently against
+    # the same pools in turn, deterministic (clocks and uuids pinned,
+    # statuses inline)
+    line = run("e2e_smoke", lambda: bench_torch.bench_e2e(
+        **BENCH_SMOKE, cycles=BENCH_SMOKE_CYCLES, warmup=BENCH_SMOKE_WARMUP,
+        durability_check=True, device=dev,
+        **bench_torch.smoke_knobs(**BENCH_SMOKE_KNOBS)))
+    dur = line["durability_check"]
+    if not (dur["acked_all_durable"] and dur["state_hash_match"]):
+        fail(f"e2e-smoke durability: {dur}")
+    K = BENCH_SMOKE_KNOBS["pools"]
+    n_cycles = BENCH_SMOKE_CYCLES + BENCH_SMOKE_WARMUP
+    if launches["e2e_smoke"]["exact_scan"] < K * n_cycles or \
+            launches["e2e_smoke"]["best_host"]:
+        fail(f"e2e-smoke: launches {launches['e2e_smoke']} in {n_cycles} "
+             f"cycles of {K} pools")
+    t0 = time.perf_counter()
+    traces = {conc: e2e.launch_trace(
+        dev, BENCH_SMOKE_AGREE, concurrent=conc, durable=True,
+        **BENCH_SMOKE, **BENCH_SMOKE_KNOBS) for conc in (True, False)}
+    for name in traces[True]["per_pool"]:
+        for c, (a, b) in enumerate(zip(traces[True]["per_pool"][name],
+                                       traces[False]["per_pool"][name])):
+            if a != b:
+                fail(f"e2e-smoke pool {name} cycle {c}: "
+                     + _first_launch_difference(
+                         a, b, ("concurrent", "in turn")))
+        if not sum(map(len, traces[True]["per_pool"][name])):
+            fail(f"e2e-smoke pool {name} launched nothing")
+    for conc, tr in traces.items():
+        d = tr["durability"]
+        if not (d["acked_all_durable"] and d["state_hash_match"]):
+            fail(f"e2e-smoke deterministic run (concurrent {conc}) "
+                 f"durability: {d}")
+    out["e2e_smoke"]["concurrent_vs_in_turn"] = {
+        "cycles": BENCH_SMOKE_AGREE, "equal": True,
+        "launched_per_pool": {p: sum(map(len, v)) for p, v in
+                              traces[True]["per_pool"].items()},
+        "completed": traces[True]["completed"],
+        # the same deterministic cycles, K threads against one thread
+        "cycle_ms_median": {
+            "concurrent": float(np.median(traces[True]["cycle_ms"])),
+            "in_turn": float(np.median(traces[False]["cycle_ms"]))},
+        "cycle_ms": {"concurrent": traces[True]["cycle_ms"],
+                     "in_turn": traces[False]["cycle_ms"]},
+        "s": time.perf_counter() - t0}
+    print(json.dumps({"bench_e2e_smoke_concurrent_vs_in_turn":
+                      out["e2e_smoke"]["concurrent_vs_in_turn"]}),
+          flush=True)
+
+    # e2e-batched: match_rounds at C = 1024 (sequential_threshold 512)
+    line = run("e2e_batched", lambda: bench_torch.bench_e2e(
+        **BENCH_BATCHED, cycles=BENCH_BATCHED_CYCLES,
+        warmup=BENCH_BATCHED_WARMUP, sequential_threshold=512,
+        label="e2e coordinator @ 100k-pending x 10k-offers, batched "
+              "matcher", device=dev))
+    n_cycles = BENCH_BATCHED_CYCLES + BENCH_BATCHED_WARMUP
+    if line["sequential"] or \
+            launches["e2e_batched"]["exact_scan"] < n_cycles:
+        fail(f"e2e-batched: sequential {line['sequential']}, launches "
+             f"{launches['e2e_batched']}")
+    if not launches["e2e_batched"]["best_host"]:
+        print(json.dumps({"e2e_batched_note": "no dense round ran"}),
+              flush=True)
+    return out, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2858,6 +3091,9 @@ def main():
     # ---- 11. the multi-device paths on shards of the card ---------------
     parallel_out, par_launches = parallel_phase(dev)
     mark("parallel")
+    # ---- 12. bench.py's remaining entry points (bench_torch.py) ---------
+    bench_out, bench_launches = bench_phase(dev)
+    mark("bench")
 
     def cycle_stats(phase, host, match):
         return {
@@ -2922,6 +3158,7 @@ def main():
         "server": server_out,
         "operator": operator_out,
         "parallel": parallel_out,
+        "bench": bench_out,
         "group_routes": gr,
         "group_cells": group_out,
         "ordered_scatter_sorted_rebalance_usage_ms": rs_ms,
@@ -2945,6 +3182,8 @@ def main():
                    "server": server_launches[k], "sim": sim_launches[k],
                    "pools": par_launches["pools"][k],
                    "sharded": par_launches["sharded"][k],
+                   **{f"bench_{m}": bench_launches[m][k]
+                      for m in bench_launches},
                    **{cell: group_launches[cell][k]
                       for cell in group_launches}}
                for k in seq_launches}

@@ -28,6 +28,7 @@ each unique job checking its group's row, clip(J_GROUP, 0, G - 1).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -57,9 +58,23 @@ LAUNCHES = {"exact_scan": 0, "exact_scan/bonus": 0, "exact_scan/groups": 0,
             "sum_ordered/levels": 0}
 
 
+# the counters are bumped from every thread that launches (each pool's
+# match_cycle runs on a thread of its own when a bench cycle drives K
+# pools together); `d[k] += 1` is a read and a write, so bumps take it
+_COUNT_LOCK = threading.Lock()
+
+
+def count(table: dict, name: str) -> None:
+    """Add one to `table[name]` (LAUNCHES, match.ROUNDS) under the
+    counters' lock."""
+    with _COUNT_LOCK:
+        table[name] += 1
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def pack_hosts(mem_left, cpus_left, gpus_left, cap_mem, cap_cpus,
@@ -214,8 +229,8 @@ def _exact_scan_cuda(jobs_packed, hosts_packed, forb, occ, bonus):
     if rc != 0:
         raise RuntimeError(f"exact_scan kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES["exact_scan/groups" if occ is not None else
-             "exact_scan/bonus" if bonus is not None else "exact_scan"] += 1
+    count(LAUNCHES, "exact_scan/groups" if occ is not None else
+          "exact_scan/bonus" if bonus is not None else "exact_scan")
     if occ is None:
         return job_host, hosts_out
     return job_host, hosts_out, occ_out
@@ -407,7 +422,7 @@ def _best_host_cuda(jobs_packed, hosts_packed, forb, bonus, spread, occ):
     if rc != 0:
         raise RuntimeError(f"best_host kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES["best_host" if occ is None else "best_host/groups"] += 1
+    count(LAUNCHES, "best_host" if occ is None else "best_host/groups")
     return best_fit, best_idx
 
 

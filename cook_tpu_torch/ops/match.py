@@ -36,8 +36,9 @@ from cook_tpu_torch.ops.segments import cumsum0, segment_cumsum
 
 NO_HOST = -1
 BIG = 3.4e38        # sort key that puts unusable hosts / jobs last
-# dense rounds run by match_rounds (a host-side count; chip_smoke.py
-# holds each cycle's best_host launches against it)
+# dense rounds run by match_rounds (a host-side count, bumped through
+# fused_match.count; chip_smoke.py holds each cycle's best_host launches
+# against it)
 ROUNDS = {"dense": 0}
 
 
@@ -615,7 +616,7 @@ def match_rounds(jobs: Jobs, hosts: Hosts, forbidden: torch.Tensor,
         i = 0
         while i < max_dense and pending(jobs.valid, state, hopeless):
             state, hopeless = dense_round(state, hopeless)
-            ROUNDS["dense"] += 1
+            fused_match.count(ROUNDS, "dense")
             i += 1
     job_host, mem_left, cpus_left, gpus_left, slots_left, _ = state
     return MatchResult(job_host, mem_left, cpus_left, gpus_left, slots_left)

@@ -140,7 +140,7 @@ def blocked_cumsum_plan(n: int) -> tuple[str, int, int]:
 
 def _blocked_cumsum_cuda(values: torch.Tensor) -> torch.Tensor:
     from cook_tpu_torch.kernels import build
-    from cook_tpu_torch.ops.fused_match import LAUNCHES
+    from cook_tpu_torch.ops.fused_match import LAUNCHES, count
 
     _check_cumsum(values)
     n = values.shape[0]
@@ -170,8 +170,8 @@ def _blocked_cumsum_cuda(values: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"blocked_cumsum kernel launch failed: CUDA "
                            f"error {rc}")
-    LAUNCHES["blocked_cumsum" if route != "global"
-             else "blocked_cumsum/global"] += 1
+    count(LAUNCHES, "blocked_cumsum" if route != "global"
+          else "blocked_cumsum/global")
     return buf[:n * k].view(values.shape)
 
 
@@ -257,7 +257,7 @@ def sum_ordered_plain(x: torch.Tensor) -> torch.Tensor:
 
 def _sum_ordered_cuda(x: torch.Tensor) -> torch.Tensor:
     from cook_tpu_torch.kernels import build
-    from cook_tpu_torch.ops.fused_match import LAUNCHES
+    from cook_tpu_torch.ops.fused_match import LAUNCHES, count
 
     _check_sum(x)
     n = x.shape[0]
@@ -281,13 +281,13 @@ def _sum_ordered_cuda(x: torch.Tensor) -> torch.Tensor:
             if rc != 0:
                 raise RuntimeError(f"sum_ordered/levels kernel launch "
                                    f"failed: CUDA error {rc}")
-            LAUNCHES["sum_ordered/levels"] += 1
+            count(LAUNCHES, "sum_ordered/levels")
             src, m, off = dst, nb, off + nb
         rc = lib.sum_ordered_launch(src, buf.data_ptr(), m, stream)
     if rc != 0:
         raise RuntimeError(f"sum_ordered kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES["sum_ordered"] += 1
+    count(LAUNCHES, "sum_ordered")
     return buf[0]
 
 
@@ -393,7 +393,7 @@ def scatter_add_ordered_plain_(out: torch.Tensor, idx: torch.Tensor,
 
 def _scatter_add_ordered_cuda(out, idx, vals):
     from cook_tpu_torch.kernels import build
-    from cook_tpu_torch.ops.fused_match import LAUNCHES
+    from cook_tpu_torch.ops.fused_match import LAUNCHES, count
 
     _check_scatter(out, idx, vals)
     if idx.device != out.device or vals.device != out.device:
@@ -439,7 +439,7 @@ def _scatter_add_ordered_cuda(out, idx, vals):
     if rc != 0:
         raise RuntimeError(f"{route} kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES[route] += 1
+    count(LAUNCHES, route)
     return out
 
 

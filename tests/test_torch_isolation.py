@@ -152,7 +152,18 @@ BENCH_TOY = {
             "--warmup", "1"],
     "pools": ["--R", "40", "--P", "200", "--H", "32", "--U", "4", "--C",
               "64", "--cycles", "2"],
+    "contended": ["--R", "200", "--P", "1000", "--H", "64", "--U", "16",
+                  "--C", "256", "--cycles", "3"],
+    "stream": ["--R", "200", "--P", "1000", "--H", "64", "--U", "16",
+               "--C", "256", "--total-jobs", "10000"],
+    "e2e-smoke": ["--P0", "1200", "--H", "48", "--U", "12", "--cycles", "3",
+                  "--warmup", "1", "--consider", "64"],
 }
+# bench.py's other bench_e2e modes at the same toy shape (their own
+# settings; the cycle counts cut)
+for _mode in ("e2e-small", "e2e-batched", "e2e-async", "longevity",
+              "longevity-async"):
+    BENCH_TOY[_mode] = BENCH_TOY["e2e"]
 
 
 @pytest.mark.parametrize("mode", sorted(BENCH_TOY))
@@ -176,15 +187,28 @@ def test_bench_torch_runs_on_cpu_without_jax(mode):
                   "capped8192_preempted"):
             assert out[k] is not None, k
         assert out["placed"] > 0 and out["launches_per_sweep"] is None
-    elif mode == "e2e":
+    elif mode.startswith(("e2e", "longevity")):
         for k in ("value", "p50_cycle_ms", "p99_cycle_ms",
                   "matched_per_cycle", "phase_median_ms", "resyncs"):
             assert out[k] is not None, k
         assert {"drain_ms", "ship_ms", "dispatch_ms", "readback_ms",
                 "launch_txn_ms", "backend_launch_ms"} <= set(
                     out["phase_median_ms"])
-        assert out["cycles"] == 3 and out["sequential"]
+        assert out["cycles"] == 3
+        assert out["sequential"] == (mode != "e2e-batched")
+        assert out["async_consumer"] == mode.endswith("async")
         assert out["launches_per_cycle"] is None
+        if mode == "e2e-smoke":
+            assert (out["pools"], out["store_shards"],
+                    out["pipeline_depth"], out["native_consume"]) == \
+                (4, 4, 2, True)
+            assert out["durability_check"]["acked_all_durable"]
+            assert out["durability_check"]["state_hash_match"]
+            assert out["metric"].endswith(
+                "4 pools x 4 shards, depth 2, native on")
+    elif mode == "stream":
+        assert out["jobs_placed"] >= 10_000 and out["cycles"] % 32 == 0
+        assert out["value"] > 0 and out["host_syncs_per_cycle"] is None
     elif mode == "pools":
         for k in ("value", "cycle_ms_median", "p99_cycle_ms",
                   "matched_per_cycle"):
@@ -203,6 +227,29 @@ def test_bench_torch_runs_on_cpu_without_jax(mode):
         assert out["event_ms_p99"] is None
         assert (out["adaptive_head_converged"] is None) == \
             (mode == "sequential")
+        assert out["shape"]["contended"] == (mode == "contended")
+        if mode == "contended":
+            assert out["adaptive_head_converged"] > 0
+            assert "contended mix" in out["metric"]
+
+
+@pytest.mark.parametrize("mode", ["contended", "stream", "e2e-small",
+                                  "e2e-smoke", "e2e-batched", "e2e-async",
+                                  "longevity", "longevity-async"])
+def test_bench_torch_mode_raises_without_cuda(mode):
+    """Without a card and without `--device cpu` a mode raises before
+    any work and prints no result line: there is no fallback."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "bench_torch.py", mode],
+                          cwd=str(ROOT), env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert not [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("{")]
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

@@ -85,9 +85,10 @@ class Sim:
     def host(self, name, **kw):
         return self.pkg.MockHost(name, **kw)
 
-    def build(self, hosts=None, runtime_fn=None, n_hosts=2, **kw):
+    def build(self, hosts=None, runtime_fn=None, n_hosts=2, store_kw=None,
+              **kw):
         p = self.pkg
-        store = p.JobStore()
+        store = p.JobStore(**(store_kw or {}))
         cluster = p.MockCluster(hosts or [
             p.MockHost(f"h{i}", mem=1000, cpus=16) for i in range(n_hosts)
         ], runtime_fn=runtime_fn)
