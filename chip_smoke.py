@@ -29,10 +29,15 @@
      two runs; both launch counters must move.
    - sum_ordered (the f32 sum in XLA-CPU's association; the dense
      round's window size, the rebalancer's freed resources) at D = 1,024
-     and H = 16,384 and the sizes of sum_cases, past 262,144 elements on
-     its "levels" route (one grid launch a lower tree level, then the
-     one-CTA kernel): bit-equal to its plain version and across two runs;
-     the levels route's counter must move.
+     and H = 16,384 and the sizes of sum_cases: past 262,144 elements
+     on its "cluster" route (one launch of one thread-block cluster) up
+     to 8,388,608 (its largest; all -0.0, a NaN, +inf beside -inf at the
+     300k pool's T), beyond on its "levels" route (a grid launch a lower
+     tree level, then the cluster): bit-equal to its plain version and
+     across two runs; all three routes' counters must move. The cluster
+     route against the levels route at 300,064 in turns (levels,
+     cluster, cluster, levels, twice), torch.sum beside them, and an
+     empty kernel's launch (one CTA; one cluster): the launch floor.
    - best_host at D=1024 rows x H=16384 hosts (the batched path's dense
      prefix) on the same mix: no bonus at spread 0.2 and 0, and a
      U(0, 0.5) bonus at spread 0 and 0.2; adversarial: all hosts
@@ -57,10 +62,15 @@
      one heavy user's) and 2,048 credits with duplicates over 16,384
      hosts (onto a lane), and at its edges (scatter_edges: all updates on
      one target, all keys dropped, int64 keys beyond int32, k = 1..4,
-     many long runs, one update, the credits' transposed copy, and two
-     shapes beyond the one-launch route): bit-equal to its plain version
-     and across two runs; the longest run of each is printed; the
-     one-launch and the sorted route's counters must both move.
+     many long runs, one update, the credits' transposed copy; past one
+     CTA the cluster route's edges (cluster_edges: the rebalancer's
+     usage at 50,064 and 300,064 tasks, one target taking every update,
+     runs straddling CTA boundaries, every key dropped, int64 keys,
+     k = 1, 2, 4, n = 32,769, T = 1,023, the route's largest n) and
+     shapes beyond it (T = 70,000; the largest n plus one), which take
+     the sorted route): bit-equal to its plain version and across two
+     runs; the longest run of each is printed; the one-launch, the
+     cluster and the sorted route's counters must all move.
    - exact_scan's other routes (the reference's XLA scan with a bonus,
      with G groups, with both): S=1024 x H=16384 with a U(0, 0.3) bonus
      (one group) and with G in {4, 64, 2048} groups (half the jobs
@@ -126,17 +136,25 @@
    min DRU diff 0.1): exact, with candidate_cap = 8192, both again as a
    gpu-mode pool (gpus in the DRU lane, mem and cpus as two feasibility
    lanes), and a 300,000-task pool with candidate_cap = 8192 (its
-   freed-resource sums take sum_ordered's levels route). Each sweep must
-   launch blocked_cumsum, ordered_scatter (its sorted route: T > 32,768)
-   and sum_ordered, place a job, and make no host sync before its
-   readback (sync debug mode); the same sweep with every wrapper routed
+   freed-resource sums take sum_ordered's cluster route). Each sweep must
+   launch blocked_cumsum, ordered_scatter's cluster route once a step
+   (its usage: T > 32,768) and sum_ordered (one CTA, or past 262,144 its
+   cluster) twice a step, no route beyond them, place a job, and make no
+   host sync before its readback (sync debug mode); the exact and the
+   300k sweeps are also timed and their launches a step counted with the
+   calls routed as before the cluster routes (ordered_scatter/sorted,
+   sum_ordered/levels), in turns with the new routes; the same sweep
+   with every wrapper routed
    to its plain version must give equal job_placed / job_host /
    preempted and bit-equal spares, and launch no kernel; the 50k sweeps
    must also equal the same call on the host CPU (the plain versions
    there are what the CPU tests hold equal to the JAX package). Prints
    each sweep's CUDA-event and host-clock ms, device busy ms, launches
-   and host syncs; then the usage scatter alone at its shape (50,064 x 501 x
-   2, ordered_scatter's sorted route) against its plain version.
+   and host syncs; then the usage scatter alone at its shapes (50,064
+   and 300,064 x 501 x 2, ordered_scatter's cluster route) against its
+   plain version and the sorted route, timed in turns (sorted, cluster,
+   cluster, sorted, twice) beside float `index_add_`, with the device
+   kernels a call launches (torch.sort's on the sorted route).
 7. The production path end to end (cook_tpu_torch/e2e.py, bench.py
    `bench_e2e`'s workload): Coordinator.match_cycle over a store of
    P0 = 100,000 pending jobs, H = 10,000 mock hosts and U = 500 users,
@@ -157,14 +175,16 @@
    rounds as the same run on the port's CPU path (its plain versions):
    E2E_AGREE cycles, and batched more, up to E2E_AGREE_MAX, until one
    ran a dense round; best_host must launch once per dense round there.
-   The first difference fails. Then E2E_CYCLES (30; 100 before the
-   server phases came, 40 before the mesh phase; cut to make room for
-   them) cycles after E2E_WARMUP,
+   The first difference fails. Then E2E_CYCLES (20; 100 before the
+   server phases came, 40 before the mesh phase, 30 before the cluster
+   routes' checks and timings; cut to make room for them; at 10 the
+   batched run reached no dense round) cycles after E2E_WARMUP,
    with bench_e2e's 19 status shards and without its durable log: each
    cycle must launch exact_scan once and, batched, best_host once per
    dense round its match_rounds ran (none sequentially); the segment
    kernels' routes are counted (the running set outgrows the one-launch
-   scatter as the backlog drains). Prints per matcher the host-clock
+   scatter as the backlog drains: the cluster route). Prints per matcher
+   the host-clock
    p50 / p99 of match_cycle, matched per cycle, the phase medians
    (drain, ship, dispatch, readback, launch_txn, backend_launch), the
    cyclic collector's pauses in the slowest cycles, and, from one
@@ -254,7 +274,7 @@
    - stream (BASELINE config 5): 1,000,000 jobs placed, 32 cycles a
      read, jobs/s and the host syncs a cycle;
    - e2e-smoke (the reference's CI gate): 20k pending x 2k hosts, 4
-     pools x 4 store shards, depth 2, native consume, 60 cycles after
+     pools x 4 store shards, depth 2, native consume, 30 cycles after
      10, the 4 pools' match_cycles from 4 threads: acked_all_durable
      and state_hash_match must be true and exact_scan launch for every
      pool's cycle; then a deterministic run of BENCH_SMOKE_AGREE cycles
@@ -324,6 +344,9 @@ CUMSUM_SHAPES = ((262144, 2), (131072, 2), (8192,), (16384,))
 # sweeps by (label, running tasks T0, gpu-mode pool, candidate_cap)
 REB_P, REB_H, REB_U = 64, 2000, 500
 REB_SAFE_DRU, REB_MIN_DRU_DIFF = 0.5, 0.1
+# the sweeps also timed and profiled on the routes before the cluster
+# routes, in turns with the new routes
+REB_PARENT_VARIANTS = ("exact", "t300k_capped8192")
 REB_VARIANTS = (("exact", 50_000, False, None),
                 ("capped8192", 50_000, False, 8192),
                 ("gpu_exact", 50_000, True, None),
@@ -331,7 +354,8 @@ REB_VARIANTS = (("exact", 50_000, False, None),
                 ("t300k_capped8192", 300_000, False, 8192))
 # the sweeps also run on the host CPU up to this pool size
 REB_CPU_MAX_T0 = 50_000
-# sum_ordered's levels route timed at the 300k pool's T
+# sum_ordered's cluster route (and the levels route before it) timed at
+# the 300k pool's T
 SUM_LEVELS_N = 300_000 + REB_P
 # the end-to-end coordinator (bench_e2e's workload): cycles held against
 # the CPU path, timed cycles after warm-up, per matcher (name, consider)
@@ -339,7 +363,7 @@ E2E_SHAPE = dict(P0=100_000, H=10_000, U=500)
 E2E_AGREE = 4
 E2E_AGREE_MAX = 64
 E2E_READBACK_CYCLES = 13
-E2E_CYCLES = 30
+E2E_CYCLES = 20
 E2E_WARMUP = 5
 E2E_MATCHERS = (("sequential", None), ("batched", C_BATCHED))
 # the server (rest/server.py build_scheduler at bench_e2e's size): the
@@ -381,10 +405,11 @@ GROUP_G = (4, 64, 2048)
 # 12. bench.py's remaining entry points through bench_torch.py: contended
 # (bench.py:2219-2224) at the headline width, stream (BASELINE config 5,
 # 1,000,000 jobs), e2e-smoke (the reference's CI gate: 20k pending x 2k
-# hosts, 4 pools x 4 store shards, depth 2, native consume, 60 cycles
-# after 10, the durability check) and e2e-batched (sequential_threshold
-# 512 at bench_e2e's 100k x 10k, BENCH_BATCHED_CYCLES after 5: cut from
-# 560 for the time limit)
+# hosts, 4 pools x 4 store shards, depth 2, native consume, the
+# durability check; BENCH_SMOKE_CYCLES after 10: 60 before the cluster
+# routes' timings, cut for the time limit) and e2e-batched
+# (sequential_threshold 512 at bench_e2e's 100k x 10k,
+# BENCH_BATCHED_CYCLES after 5: cut from 560 for the time limit)
 BENCH_CONTENDED = dict(R=10_000, P=100_000, H=10_000, U=500, C=8_192)
 BENCH_CONTENDED_CYCLES = 30
 # the contended mix at bench.py's `small` shape, where the hosts are
@@ -395,7 +420,7 @@ BENCH_STREAM_JOBS = 1_000_000
 BENCH_SMOKE = dict(P0=20_000, H=2_000, U=500)
 BENCH_SMOKE_KNOBS = dict(pools=4, store_shards=4, pipeline_depth=2,
                          native=True)
-BENCH_SMOKE_CYCLES, BENCH_SMOKE_WARMUP = 60, 10
+BENCH_SMOKE_CYCLES, BENCH_SMOKE_WARMUP = 30, 10
 # concurrent pools against pools in turn: through the first completions
 # (jobs run 10 s of the mock's clock, one a cycle)
 BENCH_SMOKE_AGREE = 13
@@ -1045,9 +1070,10 @@ def scatter_edges(device):
     one target (one run of 32,768: the warp path; and of 8,192 over two
     radix passes); every key dropped; int64 keys beyond int32 (dropped
     like -1 and T); k = 1, 2, 4; 64 targets of ~512 updates each (many
-    runs handed to warps); one update; the credits' transposed copy; and
-    two shapes beyond the one-launch route (n = 40,000; T = 70,000),
-    which take the sorted route."""
+    runs handed to warps); one update; the credits' transposed copy;
+    past one CTA, the cluster route's (cluster_edges); and a shape
+    beyond both on-chip routes (T = 70,000), which takes the sorted
+    route."""
     import torch
 
     rng = np.random.default_rng(11)
@@ -1081,26 +1107,82 @@ def scatter_edges(device):
         ("credits_transposed", z(H, 3), i32(np.where(
             np.arange(2048) < 1024, rng.integers(0, 800, 2048), H)),
          cf.t().contiguous()),
-        ("sorted_n40000", z(500, 3), i32(rng.integers(-1, 501, 40000)),
-         vals(40000, 3)),
         ("sorted_t70000", z(70000, 1), i32(rng.integers(0, 70001, 3000)),
          vals(3000, 1))]
     for k in (1, 2, 4):
         out.append((f"bids_k{k}", z(H, k), i32(np.where(
             rng.random(C_BATCHED) < 0.9, rng.integers(0, H, C_BATCHED), H)),
             vals(C_BATCHED, k)))
+    return out + cluster_edges(device)
+
+
+def cluster_edges(device):
+    """(label, out, idx, vals) of ordered_scatter's cluster route (n past
+    32,768, T <= 1,023) at the rebalancer's usage (T = 501, k = 2): at
+    50,064 and 300,064 tasks; one target taking every update (a warp's
+    chain over every CTA's places); 7 runs of ~7,150 (each straddles
+    CTA boundaries); every key dropped; int64 keys beyond int32; k = 1,
+    2 and 4; n = 32,769 (the first call past one CTA) and 40,000 at T =
+    500; T = 1,023 (10-bit keys); the route's largest n at T = 501; and
+    one more, which must take the sorted route."""
+    import torch
+    from cook_tpu_torch.ops import segments as seg
+
+    rng = np.random.default_rng(12)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def vals(n, k):
+        shape = (n,) if k == 1 else (n, k)
+        return t((10.0 ** rng.uniform(-3, 3, shape)
+                  * rng.choice([-1.0, 1.0], shape)).astype(np.float32))
+
+    z = lambda T, k: torch.zeros((T,) if k == 1 else (T, k), device=device)
+    i32 = lambda a: t(np.asarray(a, np.int32))
+    U = REB_U
+    n = 50_000 + REB_P
+    users = lambda m: np.concatenate([rng.integers(0, U, m - REB_P),
+                                      np.full(REB_P, U)])
+    wide = users(n).astype(np.int64)
+    wide[::5] = 2 ** 40
+    wide[1::7] = -(2 ** 40)
+    wide[2::11] = U + 1
+    wide[3::13] = -1
+    top = seg.scatter_cluster_max_n(U + 1)
+    out = [
+        (f"usage_{n}x{U + 1}", z(U + 1, 2), i32(users(n)), vals(n, 2)),
+        (f"usage_{300_000 + REB_P}x{U + 1}", z(U + 1, 2),
+         i32(users(300_000 + REB_P)), vals(300_000 + REB_P, 2)),
+        (f"one_target_{n}", z(U + 1, 2), i32(np.full(n, 7)), vals(n, 2)),
+        (f"straddle_7runs_{n}", z(U + 1, 2),
+         i32(np.arange(n) * 7 // n * 50), vals(n, 2)),
+        (f"all_dropped_{n}", z(U + 1, 2),
+         i32(np.where(rng.random(n) < 0.5, -1, U + 1)), vals(n, 2)),
+        (f"int64_wide_{n}", z(U + 1, 2), t(wide), vals(n, 2)),
+        ("n32769x500", z(500, 3), i32(rng.integers(-1, 501, 32769)),
+         vals(32769, 3)),
+        ("n40000x500", z(500, 3), i32(rng.integers(-1, 501, 40000)),
+         vals(40000, 3)),
+        ("t1023_n40000", z(1023, 1), i32(rng.integers(-1, 1024, 40000)),
+         vals(40000, 1)),
+        (f"largest_n{top}x{U + 1}", z(U + 1, 2), i32(users(top)),
+         vals(top, 2)),
+        (f"sorted_n{top + 1}x{U + 1}", z(U + 1, 2), i32(users(top + 1)),
+         vals(top + 1, 2))]
+    for k in (1, 2, 4):
+        out.append((f"usage_{n}_k{k}", z(U + 1, k), i32(users(n)),
+                    vals(n, k)))
     return out
 
 
-def rebalance_usage_case(device):
+def rebalance_usage_case(device, T0=50_000):
     """(out, idx, vals) of the rebalancer's per-user usage scatter at
-    bench_rebalance's shape: T = 50,064 task slots (the 64 fill slots
+    bench_rebalance's shape: T = T0 + 64 task slots (the 64 fill slots
     invalid: the drop bucket U) over U + 1 = 501 targets, k=2 (mem,
-    cpus): ordered_scatter's sorted route (n > 32,768)."""
+    cpus): ordered_scatter's cluster route (n > 32,768)."""
     import torch
 
     rng = np.random.default_rng(21)
-    T0, U = 50_000, REB_U
+    U = REB_U
     users = np.concatenate([rng.integers(0, U, T0), np.full(REB_P, U)])
     vals = (10.0 ** rng.uniform(-3, 3, (T0 + REB_P, 2))).astype(np.float32)
     return (torch.zeros((U + 1, 2), device=device),
@@ -1139,19 +1221,31 @@ def cumsum_edges(device):
 def sum_cases(device):
     """(label, x) of sum_ordered: the dense round's D = 1,024 and H =
     16,384 (the main path's calls), one element (-0.0 stays), sizes
-    around one window and a level, the one-CTA kernel's largest n and
-    beyond it the levels route (262,145, the 300k rebalance pool's T,
-    ~1M, and 8,388,609: two level launches)."""
+    around one window and a level, the one-CTA kernel's largest n, past
+    it the cluster route (262,145, the 300k rebalance pool's T, ~1M,
+    its largest n 8,388,608; at the pool's T also all -0.0, a NaN, and
+    +inf beside -inf), and beyond it the levels route (8,388,609: one
+    level launch, then the cluster)."""
     import torch
+    from cook_tpu_torch.ops import segments as seg
 
     rng = np.random.default_rng(17)
     out = [("n1_neg_zero", torch.full((1,), -0.0, device=device))]
     for n in (2, 31, 32, 33, 1000, D_MAIN, 1025, H_MAIN, 16385, 100000,
-              262144, 262145, SUM_LEVELS_N, 1048573, 8388609):
+              262144, 262145, SUM_LEVELS_N, 1048573, seg.SUM_CLUSTER_MAX,
+              seg.SUM_CLUSTER_MAX + 1):
         x = (10.0 ** rng.uniform(-3, 3, n)
              * rng.choice([-1.0, 1.0], n)).astype(np.float32)
         x[::97] = 0.0
         out.append((f"n{n}", torch.from_numpy(x).to(device)))
+    n = SUM_LEVELS_N
+    nan = (10.0 ** rng.uniform(-3, 3, n)).astype(np.float32)
+    nan[n // 3] = np.nan
+    inf = (10.0 ** rng.uniform(-3, 3, n)).astype(np.float32)
+    inf[1000], inf[n - 5] = np.inf, -np.inf
+    out += [(f"n{n}_all_neg_zero", torch.full((n,), -0.0, device=device)),
+            (f"n{n}_nan", torch.from_numpy(nan).to(device)),
+            (f"n{n}_inf_minus_inf", torch.from_numpy(inf).to(device))]
     return out
 
 
@@ -1169,14 +1263,53 @@ def check_sum(x, label):
              f"{float(p)})")
     if not torch.equal(bits(a), bits(b)):
         fail(f"sum_ordered {label}: two runs differ")
-    return abs(float(a) - float(p))
+    d = abs(float(a) - float(p))
+    return d if d == d else 0.0     # bit-equal NaNs
 
 
 def off_route(launches):
-    """Launches of the routes for shapes beyond the on-chip designs (the
-    main path's calls all fit them)."""
-    return launches["ordered_scatter/sorted"] + \
-        launches["blocked_cumsum/global"] + launches["sum_ordered/levels"]
+    """Launches of the routes the resident cycles (headline, sequential,
+    batched; their calls all fit one CTA or blocked_cumsum's cluster)
+    must not take: beyond the on-chip designs, or past one CTA."""
+    return sum(launches[k] for k in (
+        "ordered_scatter/cluster", "ordered_scatter/sorted",
+        "blocked_cumsum/global", "sum_ordered/cluster",
+        "sum_ordered/levels"))
+
+
+@contextlib.contextmanager
+def parent_routes():
+    """Route the segment kernels' calls past one CTA as before the
+    cluster routes (to time both in one run): scatters the cluster
+    route would take go to ordered_scatter/sorted (torch.sort, then the
+    walk), sums past SUM_MAX to the levels route and the one-CTA
+    kernel."""
+    from cook_tpu_torch.ops import segments as seg
+
+    plan, top = seg.scatter_plan, seg.SUM_CLUSTER_MAX
+
+    def sorted_plan(n, T):
+        route = plan(n, T)
+        return ("ordered_scatter/sorted", 0, ()) \
+            if route[0] == "ordered_scatter/cluster" else route
+
+    seg.scatter_plan, seg.SUM_CLUSTER_MAX = sorted_plan, seg.SUM_MAX
+    try:
+        yield
+    finally:
+        seg.scatter_plan, seg.SUM_CLUSTER_MAX = plan, top
+
+
+def in_turns(parent, new, reps, rounds=2):
+    """CUDA-event ms per call of `parent` and of `new`, timed in turns
+    (parent, new, new, parent, ...): ([parent ms], [new ms])."""
+    a, b = [], []
+    for _ in range(rounds):
+        a.append(cuda_ms(parent, reps))
+        b.append(cuda_ms(new, reps))
+        b.append(cuda_ms(new, reps))
+        a.append(cuda_ms(parent, reps))
+    return a, b
 
 
 def routes_ran(before, names, label):
@@ -1383,15 +1516,22 @@ def rebalance_phase(dev):
         for k, v in d.items():
             launches[k] += v
         T = T0 + REB_P
-        need = {"blocked_cumsum": 2 * REB_P, "sum_ordered": 2 * REB_P,
-                "ordered_scatter/sorted" if T > seg.SCATTER_ONE_MAX_N
-                else "ordered_scatter": REB_P}
-        if T > seg.SUM_MAX:
-            need["sum_ordered/levels"] = 2 * REB_P
+        # one launch a call: the usage scatter (T tasks onto U + 1) on
+        # the cluster route, the freed-resource sums on the one-CTA
+        # kernel, past SUM_MAX on the cluster
+        need = {"blocked_cumsum": 2 * REB_P,
+                seg.scatter_plan(T, REB_U + 1)[0]: REB_P,
+                seg.sum_ordered_route(T): 2 * REB_P}
+        if need.get("ordered_scatter/cluster") != REB_P:
+            fail(f"rebalance {label}: its usage scatter would not take the "
+                 f"cluster route ({need})")
         for k, n in need.items():
             if d[k] < n:
                 fail(f"rebalance {label}: {k} launched {d[k]} times, "
                      f"fewer than {n}")
+        if d["ordered_scatter/sorted"] or d["sum_ordered/levels"]:
+            fail(f"rebalance {label}: a route past the cluster's launched "
+                 f"({d})")
         if d["exact_scan"] or d["best_host"]:
             fail(f"rebalance {label}: a match kernel launched ({d})")
         if not bool(got[0].any()):
@@ -1401,13 +1541,28 @@ def rebalance_phase(dev):
             fail(f"rebalance {label}: the sweep synchronised the host "
                  f"before its readback: {syncs}")
         _, kernels, _, wall_ms = profile_calls(sweep, 1)
-        events = []
-        for _ in range(3):
-            ev[0].record()
-            [x.cpu() for x in sweep()]
-            ev[1].record()
-            ev[1].synchronize()
-            events.append(ev[0].elapsed_time(ev[1]))
+        parent = label in REB_PARENT_VARIANTS
+        if parent:
+            with parent_routes():
+                parent_kernels = profile_calls(sweep, 1)[1]
+
+        def timed_sweep(parent):
+            with parent_routes() if parent else contextlib.nullcontext():
+                ev[0].record()
+                [x.cpu() for x in sweep()]
+                ev[1].record()
+                ev[1].synchronize()
+            return ev[0].elapsed_time(ev[1])
+
+        # the sweep on the routes before the cluster's and on the new
+        # routes, in turns: parent, new, new, parent, ...
+        events, parent_events = [], []
+        for _ in range(2 if parent else 0):
+            parent_events.append(timed_sweep(True))
+            events += [timed_sweep(False), timed_sweep(False)]
+            parent_events.append(timed_sweep(True))
+        while len(events) < 3:
+            events.append(timed_sweep(False))
         # the same sweep through the plain versions
         before = dict(fm.LAUNCHES)
         t = time.perf_counter()
@@ -1445,6 +1600,13 @@ def rebalance_phase(dev):
             "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall_ms if wall_ms else None,
             "launches_per_sweep": sum(k[2] for k in kernels),
+            "launches_per_step": sum(k[2] for k in kernels) / REB_P,
+            **({"parent_routes_launches_per_step":
+                sum(k[2] for k in parent_kernels) / REB_P,
+                "parent_routes_sweep_event_ms": float(np.median(
+                    parent_events)),
+                "parent_routes_sweep_event_ms_runs": parent_events}
+               if parent else {}),
             "host_syncs_before_readback": sum(syncs.values()),
             "kernel_launches": {k: v for k, v in d.items() if v},
             "plain_replay_s": plain_s, "cpu_run_s": cpu_s,
@@ -2797,31 +2959,53 @@ def main():
     cs_bound_ms, cs_bound_by = cs_bound[CS_MAIN]
 
     # ---- 2c. sum_ordered vs plain on the card ------------------------------
-    sum_err, lv_err = 0.0, 0.0
+    sum_err, cl_err, lv_err = 0.0, 0.0, 0.0
     sxs = {}
     before = dict(fm.LAUNCHES)
     for label, x in sum_cases(dev):
         err = check_sum(x, label)
-        if x.shape[0] > seg.SUM_MAX:
+        n = x.shape[0]
+        if n > seg.SUM_CLUSTER_MAX:
             lv_err = max(lv_err, err)
+        elif n > seg.SUM_MAX:
+            cl_err = max(cl_err, err)
         else:
             sum_err = max(sum_err, err)
-        sxs[x.shape[0]] = x
-    routes_ran(before, ("sum_ordered", "sum_ordered/levels"),
-               "sum_ordered cases")
+        sxs[label] = x
+    routes_ran(before, ("sum_ordered", "sum_ordered/cluster",
+                        "sum_ordered/levels"), "sum_ordered cases")
     print(json.dumps({"sum_ordered_vs_plain": "bit-equal, run to run",
-                      "sizes": sorted(sxs)}), flush=True)
-    sum_ms = {n: cuda_ms(lambda: seg.sum_ordered(sxs[n]), 50)
+                      "cases": list(sxs),
+                      "sum_ordered_cluster_ctas":
+                          seg.sum_cluster_ctas()}), flush=True)
+    sx = lambda n: sxs[f"n{n}"]
+    sum_ms = {n: cuda_ms(lambda: seg.sum_ordered(sx(n)), 50)
               for n in (D_MAIN, H_MAIN, SUM_LEVELS_N)}
-    sum_plain_ms = cuda_ms(lambda: seg.sum_ordered_plain(sxs[H_MAIN]), 5)
-    sum_lib_ms = cuda_ms(lambda: torch.sum(sxs[H_MAIN]), 50)
+    sum_plain_ms = cuda_ms(lambda: seg.sum_ordered_plain(sx(H_MAIN)), 5)
+    sum_lib_ms = cuda_ms(lambda: torch.sum(sx(H_MAIN)), 50)
     # the floats read once, one written; one addition per element
     sum_bound_ms, sum_bound_by = bound(4 * H_MAIN + 4, H_MAIN)
-    # the levels route (both launches of the call) at the 300k pool's T
-    lv_plain_ms = cuda_ms(lambda: seg.sum_ordered_plain(sxs[SUM_LEVELS_N]),
-                          5)
-    lv_lib_ms = cuda_ms(lambda: torch.sum(sxs[SUM_LEVELS_N]), 50)
+    # the cluster route (one launch) against the levels route (a level
+    # launch and the one-CTA kernel) at the 300k pool's T, in turns
+    xl = sx(SUM_LEVELS_N)
+
+    def sum_parent():
+        with parent_routes():
+            seg.sum_ordered(xl)
+
+    lv_ms_turns, cl_ms_turns = in_turns(sum_parent,
+                                        lambda: seg.sum_ordered(xl), 50)
+    lv_plain_ms = cuda_ms(lambda: seg.sum_ordered_plain(xl), 5)
+    lv_lib_ms = cuda_ms(lambda: torch.sum(xl), 50)
     lv_bound = bound(4 * SUM_LEVELS_N + 4, SUM_LEVELS_N)
+    # the launch floor: an empty kernel, one CTA of 32 threads and one
+    # cluster of the cluster routes' CTAs of 1,024
+    empty_ms = {kind: cuda_ms(lambda: seg.noop_launch(kind), 50)
+                for kind in ("one_cta", "cluster")}
+    print(json.dumps({"sum_ordered_ms_in_turns": {
+        "n": SUM_LEVELS_N, "parent_levels_ms": lv_ms_turns,
+        "cluster_ms": cl_ms_turns, "torch_sum_ms": lv_lib_ms,
+        "empty_launch_ms": empty_ms, "card": card}}), flush=True)
 
     # ---- 3. best_host vs plain on the card ---------------------------------
     D = D_MAIN
@@ -2897,16 +3081,45 @@ def main():
             i.element_size() * n + 4 * v.numel() + 8 * k * touched,
             v.numel())
     before = dict(fm.LAUNCHES)
-    sc_edge_runs = {}
+    sc_edge_runs, sc_edge_routes, sc_cl_err = {}, {}, 0.0
     for label, o, i, v in scatter_edges(dev):
         err, sc_edge_runs[label] = check_scatter(o, i, v, label)
-        sc_err = max(sc_err, err)
-    routes_ran(before, ("ordered_scatter", "ordered_scatter/sorted"),
-               "ordered_scatter edges")
+        route = seg.scatter_plan(i.shape[0], o.shape[0])[0]
+        sc_edge_routes[label] = route
+        if route == "ordered_scatter/cluster":
+            sc_cl_err = max(sc_cl_err, err)
+        else:
+            sc_err = max(sc_err, err)
+    routes_ran(before, ("ordered_scatter", "ordered_scatter/cluster",
+                        "ordered_scatter/sorted"), "ordered_scatter edges")
     print(json.dumps({"ordered_scatter_vs_plain": "bit-equal, run to run",
                       "longest_run": sc_runs,
-                      "edges_longest_run": sc_edge_runs}), flush=True)
+                      "edges_longest_run": sc_edge_runs,
+                      "edges_route": sc_edge_routes,
+                      "ordered_scatter_cluster_grid":
+                          seg.scatter_cluster_grid()}), flush=True)
     SC_MAIN = "bids_8192x16384"
+    # device activities (kernels, memsets, copies) a call of the
+    # rebalancer's usage scatter launches on the cluster route and on the
+    # route before it (torch.sort's), by the profiler; counted this early
+    # (later, after the rebalance phase's profiles, one run read no
+    # activity for the cluster route and 13.4 for the sorted one)
+    from cook_tpu_torch.profile_cycle import profile_calls
+    usage_kernels = {}
+    for T0 in (50_000, 300_000):
+        o, i, v = rebalance_usage_case(dev, T0)
+
+        def sorted_call():
+            with parent_routes():
+                seg.scatter_add_ordered_(o, i, v)
+
+        usage_kernels[T0] = {
+            name: sum(k[2] for k in profile_calls(fn, 20)[1])
+            for name, fn in (
+                ("sorted", sorted_call),
+                ("cluster", lambda: seg.scatter_add_ordered_(o, i, v)))}
+    print(json.dumps({"usage_device_activities_per_call": usage_kernels}),
+          flush=True)
 
     # ---- 3c. host time of each wrapper per call (enqueue only) -------------
     jh_, fb_ = jp[:HEAD_START].contiguous(), forb[:HEAD_START].contiguous()
@@ -2918,7 +3131,7 @@ def main():
             CUMSUM_SHAPES[0]])),
         "ordered_scatter": host_us(
             lambda: seg.scatter_add_ordered_(o, i, v)),
-        "sum_ordered": host_us(lambda: seg.sum_ordered(sxs[H_MAIN])),
+        "sum_ordered": host_us(lambda: seg.sum_ordered(sx(H_MAIN))),
         "torch_add_reference": host_us(lambda: torch.add(o, 1.0)),
     }
     print(json.dumps({"wrapper_host_us_per_call": wrapper_host_us}),
@@ -3061,19 +3274,49 @@ def main():
     mark("groups")
     # ---- 6. the rebalancer: bench_rebalance's sweeps through the kernels -
     reb_out, reb_launches = rebalance_phase(dev)
-    # its usage scatter alone: ordered_scatter's sorted route
-    o, i, v = rebalance_usage_case(dev)
-    before = dict(fm.LAUNCHES)
-    rs_err, rs_run = check_scatter(o, i, v, "rebalance_usage")
-    routes_ran(before, ("ordered_scatter/sorted",), "rebalance usage")
-    work = o.clone()
-    rs_ms = cuda_ms(lambda: seg.scatter_add_ordered_(work, i, v), 50)
-    rs_plain_ms = cuda_ms(
-        lambda: seg.scatter_add_ordered_plain_(work, i, v), 3)
-    sink = torch.zeros_like(o)
-    rs_lib_ms = cuda_ms(lambda: sink.index_add_(0, i, v), 50)
-    rs_bound = bound(4 * i.shape[0] + 4 * v.numel() + 8 * 2 * o.shape[0],
-                     v.numel())
+    # its usage scatter alone at 50k and 300k tasks: the cluster route
+    # against the parent's (torch.sort, then the walk), in turns
+    usage = {}
+    for T0 in (50_000, 300_000):
+        o, i, v = rebalance_usage_case(dev, T0)
+        label = f"{T0 + REB_P}x{REB_U + 1}x2"
+        before = dict(fm.LAUNCHES)
+        err, run = check_scatter(o, i, v, f"rebalance_usage_{label}")
+        routes_ran(before, ("ordered_scatter/cluster",),
+                   f"rebalance usage {label}")
+        with parent_routes():
+            before = dict(fm.LAUNCHES)
+            perr, _ = check_scatter(o, i, v, f"rebalance_usage_{label} "
+                                             f"(sorted route)")
+            routes_ran(before, ("ordered_scatter/sorted",),
+                       f"rebalance usage {label} (sorted route)")
+        work = o.clone()
+
+        def parent_call():
+            with parent_routes():
+                seg.scatter_add_ordered_(work, i, v)
+
+        new_call = lambda: seg.scatter_add_ordered_(work, i, v)
+        parent_ms, new_ms = in_turns(parent_call, new_call, 50)
+        sink = torch.zeros_like(o)
+        usage[label] = {
+            "err": err, "sorted_err": perr, "longest_run": run,
+            "cluster_ms_turns": new_ms, "sorted_ms_turns": parent_ms,
+            "cluster_ms": float(np.median(new_ms)),
+            "sorted_ms": float(np.median(parent_ms)),
+            "plain_ms": cuda_ms(
+                lambda: seg.scatter_add_ordered_plain_(work, i, v), 3),
+            "index_add_ms": cuda_ms(lambda: sink.index_add_(0, i, v), 50),
+            # the indices and values read once, each touched target read
+            # and written once; one add per value
+            "bound": bound(4 * i.shape[0] + 4 * v.numel()
+                           + 8 * 2 * o.shape[0], v.numel()),
+            "device_activities_per_call": usage_kernels[T0],
+            "host_us": {"cluster": host_us(new_call),
+                        "sorted": host_us(parent_call)}}
+        print(json.dumps({f"rebalance_usage_{label}": usage[label],
+                          "card": card}), flush=True)
+    RU = f"{50_000 + REB_P}x{REB_U + 1}x2"
 
     mark("rebalance")
     # ---- 7. the production path end to end: Coordinator over a store -----
@@ -3161,11 +3404,10 @@ def main():
         "bench": bench_out,
         "group_routes": gr,
         "group_cells": group_out,
-        "ordered_scatter_sorted_rebalance_usage_ms": rs_ms,
-        "ordered_scatter_sorted_plain_ms": rs_plain_ms,
-        "ordered_scatter_sorted_bound_ms": rs_bound[0],
-        "index_add_rebalance_usage_ms": rs_lib_ms,
-        "rebalance_usage_longest_run": rs_run,
+        "rebalance_usage": usage,
+        "sum_ordered_cluster_ms_turns": cl_ms_turns,
+        "sum_ordered_levels_ms_turns": lv_ms_turns,
+        "empty_launch_ms": empty_ms,
         "wrapper_host_us_per_call": wrapper_host_us,
         "library_note": "no single PyTorch call computes the sequential "
                         "scan or the masked fitness argmax; "
@@ -3249,22 +3491,43 @@ def main():
               "pl.pallas_call", sum_err, sum_ms[H_MAIN], sum_plain_ms,
               (sum_bound_ms, sum_bound_by), sum_lib_ms, n=H_MAIN,
               ms_by_n=sum_ms),
-        entry("ordered_scatter/sorted", "cuda",
+        entry("ordered_scatter/cluster", "cuda",
               "cook_tpu_torch/csrc/ordered_scatter.cu",
               "none: jax.ops.segment_sum (cook_tpu/ops/rebalance.py:191-194,"
-              " :219-220), no pl.pallas_call", rs_err, rs_ms, rs_plain_ms,
-              rs_bound, rs_lib_ms, case="rebalance_usage_50064x501x2",
-              longest_run=rs_run,
-              ms_note="the whole call: torch.sort of the keys, then the "
-                      "walk kernel"),
-        entry("sum_ordered/levels", "cuda",
+              " :219-220; ops/cycle.py:173-179 past 32,768 running tasks), "
+              "no pl.pallas_call", max(sc_cl_err, usage[RU]["err"]),
+              usage[RU]["cluster_ms"], usage[RU]["plain_ms"],
+              usage[RU]["bound"], usage[RU]["index_add_ms"],
+              case=f"rebalance_usage_{RU}",
+              longest_run=usage[RU]["longest_run"],
+              ms_by_case={k: u["cluster_ms"] for k, u in usage.items()},
+              cluster_grid=seg.scatter_cluster_grid()),
+        entry("sum_ordered/cluster", "cuda",
               "cook_tpu_torch/csrc/sum_ordered.cu",
               "none: jnp.sum past 262,144 elements (cook_tpu/ops/"
-              "rebalance.py:304-308), no pl.pallas_call", lv_err,
-              sum_ms[SUM_LEVELS_N], lv_plain_ms, lv_bound, lv_lib_ms,
-              n=SUM_LEVELS_N,
+              "rebalance.py:304-308), no pl.pallas_call", cl_err,
+              float(np.median(cl_ms_turns)), lv_plain_ms, lv_bound,
+              lv_lib_ms, n=SUM_LEVELS_N, cluster_ctas=seg.sum_cluster_ctas(),
+              empty_launch_ms=empty_ms),
+        entry("ordered_scatter/sorted", "cuda",
+              "cook_tpu_torch/csrc/ordered_scatter.cu",
+              "none: jax.ops.segment_sum past the cluster route's shapes, "
+              "no pl.pallas_call", max(sc_err, usage[RU]["sorted_err"]),
+              usage[RU]["sorted_ms"], usage[RU]["plain_ms"],
+              usage[RU]["bound"], usage[RU]["index_add_ms"],
+              case=f"rebalance_usage_{RU}",
+              ms_by_case={k: u["sorted_ms"] for k, u in usage.items()},
+              ms_note="the whole call: torch.sort of the keys, then the "
+                      "walk kernel; timed with the calls routed as before "
+                      "the cluster route"),
+        entry("sum_ordered/levels", "cuda",
+              "cook_tpu_torch/csrc/sum_ordered.cu",
+              "none: jnp.sum past 8,388,608 elements, no pl.pallas_call",
+              lv_err, float(np.median(lv_ms_turns)), lv_plain_ms, lv_bound,
+              lv_lib_ms, n=SUM_LEVELS_N,
               ms_note="the whole call: its level launch and the one-CTA "
-                      "kernel")]}), flush=True)
+                      "kernel; timed with the calls routed as before the "
+                      "cluster route")]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -17,7 +17,7 @@
 //
 // What bounds it on an H100: the function reads n indices and n x k
 // floats and reads and writes the touched targets: well under a
-// microsecond of device memory at the port's calls (n <= 32,768). The
+// microsecond of device memory at the port's calls (n <= 300,064). The
 // order is a dependency chain per target, so a long run is bound by its
 // chain of adds. The one-launch route below runs on one SM: measured by
 // clock64 stamps per phase, its sort is bound by that SM's instruction
@@ -25,7 +25,7 @@
 // where the values stay in device memory (the usage call) its walk is
 // bound by that SM's rate of scattered loads (~3 cycles a value).
 //
-// Two routes (segments.scatter_plan picks one by the shape):
+// Three routes (segments.scatter_plan picks one by the shape):
 //
 // "ordered_scatter" (n <= 32,768, T <= 65,535: every call of the main
 // path), ONE launch of ONE CTA of 1,024 threads, no sort before it:
@@ -64,12 +64,46 @@
 //   predicate (and ptxas has 7 predicate registers: a predicated add a
 //   value, unrolled, failed to allocate).
 //
+// "ordered_scatter/cluster" (n > 32,768, T <= 1,023 and n within the
+// shared memory of 8 CTAs: segments.scatter_plan; the rebalancer's usage
+// at 50,064 and 300,064 tasks onto 501 users, the cycle's usage past
+// 32,768 running tasks), ONE launch of G thread-block clusters of C CTAs
+// of 1,024 threads (C = 16 where the card co-schedules such a cluster,
+// else 8; G as many clusters as run at once, <= 16: 7 x 16 on an H100),
+// no sort before it. Cluster g owns targets [g tq, g tq + tq), tq =
+// ceil(T / G):
+// - CTA r counts the keys of updates [r per, r per + per) that fall in
+//   its cluster's range into per-warp row histograms (one row a target)
+//   in its shared memory, and each row's warps' exclusive prefix.
+// - After a cluster barrier, each CTA reads every CTA's row totals over
+//   DSMEM and scans them: row d of CTA r starts after every update of
+//   the rows before d, then row d's in the CTAs before r. The (row, CTA,
+//   warp) order is the updates' order within a row: stable by
+//   construction.
+// - Each warp places its update indices, 32 at a time ranked by ballot,
+//   at their sorted places, which spread evenly over the cluster's CTAs
+//   (a DSMEM store where another CTA holds the place); a cluster barrier.
+// - The walk: a warp per target's run, in the CTA holding its first
+//   place: 128 places loaded (over DSMEM past the CTA's end) and their
+//   values gathered (one float2 / float4 load an update where aligned),
+//   the next batch before this batch's adds; 32 updates' values at a time
+//   staged in shared memory, and every lane adds them in order from there.
+//   A relaxed cluster barrier before any CTA exits.
+//   Measured by clock64 stamps per CTA (kernel_phases.py) at 50,064 x 501
+//   x 2: the count and the placement are bound by instruction issue (~160
+//   instructions a row of 32 keys, every cluster's CTAs reading every
+//   key: n / C keys an SM), each release/acquire cluster barrier takes
+//   ~1,300 cycles, the walk ~4,300.
+//
 // "ordered_scatter/sorted" (beyond those sizes): the wrapper's stable
 // torch.sort of the int32 keys (skey, perm), then one thread per sorted
 // position: the thread at a run's first position walks the run, 16
 // (key, update) loads and then 16 gathers ahead of the adds.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -197,13 +231,14 @@ __device__ void block_exclusive_scan(unsigned* a, int size,
 }
 
 // the same digit as this lane among the active lanes, from one ballot a
-// digit bit (stable ranking within the warp; __match_any_sync, the
-// other way, is several times slower)
+// digit bit, up to kMaxBits bits (stable ranking within the warp;
+// __match_any_sync, the other way, is several times slower)
+template <int kMaxBits>
 __device__ __forceinline__ unsigned peers_of(unsigned d, int bits,
                                              unsigned act) {
   unsigned m = act;
 #pragma unroll
-  for (int b = 0; b < 9; ++b) {
+  for (int b = 0; b < kMaxBits; ++b) {
     if (b < bits) {
       const unsigned bal = __ballot_sync(0xffffffffu, (d >> b) & 1u);
       m &= bal ^ (((d >> b) & 1u) - 1u);  // bal where set, ~bal where not
@@ -319,7 +354,7 @@ ordered_scatter_one_kernel(const I* __restrict__ idx,
         if (base + 32 * q >= w1) break;  // the slice's end (warp-uniform)
         const bool valid = base + 32 * q + lane < w1;
         const unsigned d = (wv[q] >> shift) & dmask;
-        const unsigned peers = peers_of(
+        const unsigned peers = peers_of<9>(
             d, p == 0 ? d0 : d1, __ballot_sync(0xffffffffu, valid));
         if (valid)
           dst[hist[d * kHistRow + warp] + __popc(peers & lanemask_lt())] =
@@ -497,6 +532,378 @@ int dispatch_one(int k, const void* idx, const void* vals, void* out,
   }
 }
 
+// ---- "ordered_scatter/cluster": one launch of G thread-block clusters --
+constexpr int kMaxCluster = 16;
+constexpr int kMaxClusters = 16;
+constexpr int kClusterMaxRows = 1024;  // a cluster's targets (T <= 1,023)
+// shared words a row takes: its (row, warp) cursors, its total, its base
+// and its run's start
+constexpr int kRowWords = kHistRow + 3;
+constexpr unsigned kSkip = 0xffffffffu;  // a key outside the cluster's
+constexpr int kWalkWarps = 16;           // warps of a CTA that walk runs
+// their staging: 32 updates' values (<= 4 floats) a warp
+constexpr int kStageWords = kWalkWarps * 32 * 4;
+
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// before a CTA exits: the others' loads from its shared memory have
+// returned before they arrive, so no memory order is waited for (a
+// release waits for this CTA's stores to device memory)
+__device__ __forceinline__ void cluster_exit() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n\t"
+               "barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// an update's K values, one load where they are a float2 or a float4
+// (one scattered request in place of K: the walk is bound by its SM's
+// rate of them)
+template <int K>
+__device__ __forceinline__ void load_row(const float* __restrict__ vals,
+                                         unsigned j, bool vec, float (&v)[K]) {
+  const float* row = vals + (size_t)j * K;
+  if (K == 2 && vec) {
+    const float2 w = *reinterpret_cast<const float2*>(row);
+    v[0] = w.x;
+    v[K - 1] = w.y;
+  } else if (K == 4 && vec) {
+    const float4 w = *reinterpret_cast<const float4*>(row);
+    v[0] = w.x;
+    v[1 % K] = w.y;
+    v[2 % K] = w.z;
+    v[3 % K] = w.w;
+  } else {
+#pragma unroll
+    for (int c = 0; c < K; ++c) v[c] = row[c];
+  }
+}
+
+// sorted places a CTA holds: ceil(n / C), rounded up to whole warps
+__host__ __device__ inline int cluster_slots(int n, int C) {
+  return ((n + C - 1) / C + 31) / 32 * 32;
+}
+
+// Cluster g owns targets [g tq, g tq + tq): it sorts the updates whose
+// key falls there and walks their runs. CTA r of the cluster counts and
+// places updates [r per, r per + per) (the same slices in every
+// cluster); the cluster's m sorted places spread evenly over its CTAs,
+// ceil(m / C) (rounded up to 32, <= per) each
+template <int K, typename I>
+__global__ void __launch_bounds__(kOneThreads, 1)
+ordered_scatter_cluster_kernel(const I* __restrict__ idx,
+                               const float* __restrict__ vals,
+                               float* __restrict__ out, int n, int T,
+                               int tq, int per) {
+  extern __shared__ unsigned smem[];
+  __shared__ unsigned warp_tot[32];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int r = (int)cluster.block_rank();
+  const int t0 = (int)(blockIdx.x / C) * tq;
+  const int R = min(T, t0 + tq) - t0;      // this cluster's rows
+  const int bits = R > 1 ? 32 - __clz(R - 1) : 1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  unsigned* hist = smem;                   // (row, warp), row-major
+  unsigned* tot = hist + R * kHistRow;     // this CTA's count a row
+  unsigned* base = tot + R;                // this CTA's first place a row
+  unsigned* start = base + R;              // each run's first place, and
+                                           // the end
+  float* stage = reinterpret_cast<float*>(start + R + 1);
+  unsigned* S = start + R + 1 + kStageWords;  // update indices
+  const int c0 = min(n, r * per), c1 = min(n, c0 + per);
+  const int pw = ((c1 - c0 + kWarps - 1) / kWarps + 31) / 32 * 32;
+  const int w0 = min(c1, c0 + warp * pw), w1 = min(c1, w0 + pw);
+  // kChunk rows of the warp's slice from b, lane + 32 q (kSkip: another
+  // cluster's target, a dropped key, or past the slice)
+  auto load_rows = [&](int b, unsigned (&kv)[kChunk]) {
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      const int i = b + 32 * q + lane;
+      const I v = i < w1 ? idx[i] : (I)-1;
+      kv[q] = (v >= (I)t0 && v < (I)(t0 + R)) ? (unsigned)(v - (I)t0)
+                                              : kSkip;
+    }
+  };
+
+  for (int i = tid; i < R * kHistRow; i += kOneThreads) hist[i] = 0u;
+  __syncthreads();
+  for (int b = w0; b < w1; b += 32 * kChunk) {
+    unsigned kv[kChunk];
+    load_rows(b, kv);
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q)
+      if (kv[q] != kSkip) atomicAdd(&hist[kv[q] * kHistRow + warp], 1u);
+  }
+  __syncthreads();
+  // a thread a row: its warps' exclusive prefix in place (row d's cells
+  // lie in banks d .. d + 31: no conflict), the CTA's total
+  for (int d = tid; d < R; d += kOneThreads) {
+    unsigned run = 0u;
+#pragma unroll 8
+    for (int w = 0; w < kWarps; ++w) {
+      const unsigned c = hist[d * kHistRow + w];
+      hist[d * kHistRow + w] = run;
+      run += c;
+    }
+    tot[d] = run;
+  }
+  cluster_barrier();  // every CTA's row totals, readable over DSMEM
+
+  // row d's cell of CTA r starts after every update of the rows before
+  // d (all the cluster's CTAs), then row d's updates in the CTAs before
+  // r: the (row, CTA, warp) order, stable by construction
+  unsigned all = 0u, before = 0u;
+  if (tid < R) {
+    unsigned t[kMaxCluster];
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q)
+      t[q] = q < C ? *cluster.map_shared_rank(tot + tid, q) : 0u;
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) {
+      all += t[q];
+      if (q < r) before += t[q];
+    }
+  }
+  unsigned v = all;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned u = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += u;
+  }
+  if (lane == 31) warp_tot[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    unsigned w = warp_tot[lane];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned u = __shfl_up_sync(0xffffffffu, w, off);
+      if (lane >= off) w += u;
+    }
+    warp_tot[lane] = w;
+  }
+  __syncthreads();
+  if (tid < R) {
+    const unsigned first = v - all + (warp > 0 ? warp_tot[warp - 1] : 0u);
+    start[tid] = first;
+    base[tid] = first + before;
+    if (tid == R - 1) start[R] = first + all;
+  }
+  __syncthreads();
+  // the cluster's places, spread evenly: CTA q holds [q pq, q pq + pq)
+  const int pq = max(32, cluster_slots((int)start[R], C));
+
+  // placement: each update index to its sorted place, lower lanes first
+  for (int b = w0; b < w1; b += 32 * kChunk) {
+    unsigned kv[kChunk];
+    load_rows(b, kv);
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      if (b + 32 * q >= w1) break;  // the slice's end (warp-uniform)
+      const bool mine = kv[q] != kSkip;
+      const unsigned act = __ballot_sync(0xffffffffu, mine);
+      if (act == 0u) continue;
+      const unsigned d = mine ? kv[q] : 0u;
+      const unsigned peers = peers_of<10>(d, bits, act);
+      if (mine) {
+        const unsigned p = base[d] + hist[d * kHistRow + warp] +
+                           __popc(peers & lanemask_lt());
+        const int owner = (int)(p / (unsigned)pq);
+        unsigned* at = S + (p - (unsigned)(owner * pq));
+        *(owner == r ? at : cluster.map_shared_rank(at, owner)) =
+            (unsigned)(b + 32 * q + lane);
+      }
+      __syncwarp();
+      if (mine && lane == 31 - __clz(peers))
+        hist[d * kHistRow + warp] += __popc(peers);
+      __syncwarp();
+    }
+  }
+  cluster_barrier();  // every update index at its place
+
+  // the walk: a warp per target's run [start[t], start[t + 1]), in the
+  // CTA that holds the run's first place (rows [d0, d1) here); its lanes
+  // load 128 places (over DSMEM where the run goes on in the next CTA)
+  // and gather their values from device memory, the next batch before
+  // this batch's adds; they stage 32 updates' values at a time in shared
+  // memory, and every lane adds them in order from there (broadcast
+  // reads, issued ahead of the adds: a shuffle a value held each add
+  // back by its latency). Past the run's end a lane holds -0.0, which
+  // leaves every sum as it is
+  const int d0 = __syncthreads_count(tid < R && (int)start[tid] < r * pq);
+  const int d1 =
+      __syncthreads_count(tid < R && (int)start[tid] < (r + 1) * pq);
+  float* st = stage + warp * 32 * K;
+  const bool vec = (K == 2 || K == 4) && ((uintptr_t)vals % (4 * K)) == 0;
+  for (int d = d0 + warp; warp < kWalkWarps && d < d1; d += kWalkWarps) {
+    const int p0 = (int)start[d], p1 = (int)start[d + 1];
+    if (p0 == p1) continue;
+    auto gather = [&](int pos, float (&v)[kWarpRows][K]) {
+      unsigned j[kWarpRows];
+#pragma unroll
+      for (int u = 0; u < kWarpRows; ++u) {
+        const int p = pos + 32 * u + lane;
+        const int owner = p / pq;
+        const unsigned* at = S + (p - owner * pq);
+        j[u] = p >= p1        ? kSkip
+               : owner == r ? *at
+                            : *cluster.map_shared_rank(at, owner);
+      }
+#pragma unroll
+      for (int u = 0; u < kWarpRows; ++u) {
+        if (j[u] == kSkip) {
+#pragma unroll
+          for (int c = 0; c < K; ++c) v[u][c] = -0.0f;
+        } else {
+          load_row<K>(vals, j[u], vec, v[u]);
+        }
+      }
+    };
+    const size_t t = (size_t)(t0 + d);
+    float acc[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c) acc[c] = out[t * K + c];
+    float cur[kWarpRows][K];
+    gather(p0, cur);
+    for (int pos = p0; pos < p1; pos += 32 * kWarpRows) {
+      float nxt[kWarpRows][K];
+      const bool more = pos + 32 * kWarpRows < p1;
+      if (more) gather(pos + 32 * kWarpRows, nxt);
+#pragma unroll
+      for (int u = 0; u < kWarpRows; ++u) {
+#pragma unroll
+        for (int c = 0; c < K; ++c) st[c * 32 + lane] = cur[u][c];
+        __syncwarp();
+#pragma unroll 16
+        for (int l = 0; l < 32; ++l) {
+#pragma unroll
+          for (int c = 0; c < K; ++c)
+            acc[c] = __fadd_rn(acc[c], st[c * 32 + l]);
+        }
+        __syncwarp();
+      }
+      if (!more) break;
+#pragma unroll
+      for (int u = 0; u < kWarpRows; ++u) {
+#pragma unroll
+        for (int c = 0; c < K; ++c) cur[u][c] = nxt[u][c];
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) out[t * K + c] = acc[c];
+    }
+  }
+  cluster_exit();  // no CTA leaves while another could read its places
+}
+
+// shared memory of a cluster CTA: tq rows, the staging and `per`
+// places, in bytes
+inline size_t cluster_smem_bytes(int tq, int per) {
+  return 4 * ((size_t)kRowWords * tq + 1 + kStageWords + per);
+}
+
+template <int K, typename I>
+void set_cluster_attrs() {
+  static bool done = false;
+  if (done) return;
+  auto* kernel = ordered_scatter_cluster_kernel<K, I>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kSmemMax);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                       1);
+  done = true;
+}
+
+// clusters of `ctas` CTAs of 1,024 threads at the route's most shared
+// memory the card can run at once (0 where none)
+int active_clusters(int ctas) {
+  set_cluster_attrs<4, int64_t>();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(kOneThreads);
+  cfg.dynamicSmemBytes = kSmemMax;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = ctas;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(
+      &n, (void*)ordered_scatter_cluster_kernel<4, int64_t>, &cfg);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return n;
+}
+
+// 16 CTAs a cluster where the card can run a cluster of 16, else the
+// portable 8; and as many clusters (<= 16) as it can run at once (chosen
+// once)
+struct Grid {
+  int ctas, clusters;
+};
+
+Grid cluster_grid() {
+  static Grid g = {0, 0};
+  if (g.ctas) return g;
+  int ctas = kMaxCluster, m = active_clusters(ctas);
+  if (m < 1) {
+    ctas = 8;
+    m = active_clusters(ctas);
+  }
+  g.ctas = ctas;
+  g.clusters = m < 1 ? 1 : (m > kMaxClusters ? kMaxClusters : m);
+  return g;
+}
+
+template <int K, typename I>
+int launch_cluster(const void* idx, const void* vals, void* out, int n,
+                   int T, cudaStream_t stream) {
+  const Grid grid = cluster_grid();
+  const int C = grid.ctas;
+  // targets a cluster: as even as the clusters allow, none empty
+  const int tq = (T + grid.clusters - 1) / grid.clusters;
+  const int G = (T + tq - 1) / tq;
+  const int per = cluster_slots(n, C);
+  const size_t smem = cluster_smem_bytes(tq, per);
+  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  set_cluster_attrs<K, I>();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G * C);
+  cfg.blockDim = dim3(kOneThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, ordered_scatter_cluster_kernel<K, I>, (const I*)idx,
+      (const float*)vals, (float*)out, n, T, tq, per);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <typename I>
+int dispatch_cluster(int k, const void* idx, const void* vals, void* out,
+                     int n, int T, cudaStream_t s) {
+  switch (k) {
+    case 1: return launch_cluster<1, I>(idx, vals, out, n, T, s);
+    case 2: return launch_cluster<2, I>(idx, vals, out, n, T, s);
+    case 3: return launch_cluster<3, I>(idx, vals, out, n, T, s);
+    case 4: return launch_cluster<4, I>(idx, vals, out, n, T, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Plain C entry point of the one-launch route (bound with ctypes). idx
@@ -518,6 +925,34 @@ extern "C" int ordered_scatter_launch(const void* idx, const void* vals,
                                        d0, d1, s)
                : dispatch_one<int32_t>(k, idx, vals, out, ping, n, T, jbits,
                                        d0, d1, s);
+}
+
+// The cluster route's grid on this card: CTAs a cluster (16, or 8 where
+// 16 cannot be scheduled) and clusters at most (as many as run at once,
+// <= 16).
+extern "C" int ordered_scatter_cluster_ctas(void) {
+  return cluster_grid().ctas;
+}
+extern "C" int ordered_scatter_clusters(void) {
+  return cluster_grid().clusters;
+}
+
+// Plain C entry point of the cluster route (bound with ctypes). idx (n,)
+// contiguous int32 (idx64 = 0) or int64 (1); vals (n, k) and out (T, k)
+// contiguous f32, k in 1..4; T <= 1,023; a CTA's rows and places within
+// its shared memory (segments.scatter_plan). Launches one grid of
+// clusters on `stream` and returns the launch's error (or
+// cudaGetLastError()) as an int (0 = launched; cudaErrorInvalidValue for
+// arguments out of range).
+extern "C" int ordered_scatter_cluster_launch(const void* idx,
+                                              const void* vals, void* out,
+                                              int n, int T, int k, int idx64,
+                                              void* stream) {
+  if (n < 1 || T < 1 || T >= kClusterMaxRows)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return idx64 ? dispatch_cluster<int64_t>(k, idx, vals, out, n, T, s)
+               : dispatch_cluster<int32_t>(k, idx, vals, out, n, T, s);
 }
 
 // Plain C entry point of the sorted route (bound with ctypes). vals

@@ -1,19 +1,23 @@
-"""Where the time of the one-CTA segment kernels goes, phase by phase.
+"""Where the time of the on-chip segment kernels goes, phase by phase.
 
     python -m cook_tpu_torch.kernel_phases
 
-Builds instrumented copies of csrc/ordered_scatter.cu and
-csrc/blocked_cumsum.cu (into cook_tpu_torch/_build/phases/, beside the
-normal build): after every `__syncthreads()` (and cluster barrier) of
-the one-launch scatter kernel, the exclusive scan inside it, the
-on-chip cumsum kernels and their shared-memory scan, thread 0 of block 0
-records `clock64()`. The wrappers then run with the instrumented
-libraries on chip_smoke.py's main-path inputs (the three scatter shapes,
-the four cumsum shapes), and the script prints, per case, the SM cycles
-between consecutive stamps (the first from the kernel's start) and
-their total, with the card's name, power limit and SM clocks. The
-stamps cost a few cycles each; times are cycles of the SM clock, not
-device time. Needs a CUDA device.
+Builds instrumented copies of csrc/ordered_scatter.cu, csrc/sum_ordered.cu
+and csrc/blocked_cumsum.cu (into cook_tpu_torch/_build/phases/, beside
+the normal build): after every `__syncthreads()` (and cluster barrier)
+of the one-launch and the cluster scatter kernels, the exclusive scan
+inside the first, the one-CTA and the cluster sum kernels and the tree
+CTA 0 of the cluster finishes, the on-chip cumsum kernels and their
+shared-memory scan, thread 0 of block 0 (CTA 0 of a cluster) records
+`clock64()`. The wrappers then run with the instrumented libraries on
+chip_smoke.py's main-path inputs (the three scatter shapes and the
+rebalancer's usage at 50,064 and 300,064 tasks; sums of 1,024, 16,384
+and 300,064; the four cumsum shapes), and the script prints, per case,
+the SM cycles between consecutive stamps (the first from the kernel's
+start) and their total, with the card's name, power limit and SM
+clocks. The stamps cost a few cycles each (the count in shared memory,
+stores to device memory); times are cycles of the SM clock, not device
+time. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -32,13 +36,17 @@ from cook_tpu_torch.ops import segments as seg
 REPO = Path(__file__).resolve().parents[1]
 OUT = build.BUILD_DIR / "phases"
 
+# the stamp count lives in shared memory (a global one is reloaded after
+# every barrier: a device-memory latency inside each phase it measures);
+# device memory only receives the stamps and the count
 _HEAD = """
 __device__ long long g_stamp[64];
 __device__ int g_ns;
+__shared__ int s_ns;
 #define STAMP() do { if (threadIdx.x == 0 && blockIdx.x == 0) { \\
-  g_stamp[g_ns] = clock64(); g_ns = g_ns + 1; } } while (0)
+  g_stamp[s_ns] = clock64(); s_ns = s_ns + 1; g_ns = s_ns; } } while (0)
 #define STAMP0() do { if (threadIdx.x == 0 && blockIdx.x == 0) { \\
-  g_ns = 1; g_stamp[0] = clock64(); } } while (0)
+  s_ns = 1; g_ns = 1; g_stamp[0] = clock64(); } } while (0)
 """
 _TAIL = """
 extern "C" int read_stamps(long long* h, int* n) {
@@ -52,7 +60,14 @@ _REGIONS = {
     "ordered_scatter": [
         ("__device__ void block_exclusive_scan(", "// the same digit", False),
         ("ordered_scatter_one_kernel(const I*",
-         "template <int K, typename I>\nint launch_one", True)],
+         "template <int K, typename I>\nint launch_one", True),
+        ("ordered_scatter_cluster_kernel(const I*",
+         "// shared memory of a cluster CTA", True)],
+    "sum_ordered": [
+        ("sum_ordered_kernel(const float*", "// one tree level over", True),
+        ("__device__ void finish_tree(", "// n > 32 x 8,192", False),
+        ("sum_ordered_cluster_kernel(const float*",
+         "// the cluster route's shared memory", True)],
     "blocked_cumsum": [
         ("__device__ void smem_scan(", "__global__ void", False),
         ("blocked_cumsum_one_cta_kernel(const float*",
@@ -65,7 +80,7 @@ _REGIONS = {
 def instrumented(name: str) -> str:
     """The source of kernel `name` with a stamp after every barrier of
     the functions in _REGIONS (and one at each kernel's start and, for
-    the scatter kernel, at its end)."""
+    the one-CTA scatter kernel, at its end)."""
     s = (build.CSRC / f"{name}.cu").read_text()
     s = s.replace("namespace {", _HEAD + "namespace {", 1)
     for start, end, kernel in _REGIONS[name]:
@@ -73,13 +88,13 @@ def instrumented(name: str) -> str:
         b = s.index(end, a)
         body = s[a:b].replace("__syncthreads();",
                               "__syncthreads(); STAMP();")
-        body = body.replace("  cluster_barrier();",
-                            "  cluster_barrier(); STAMP();")
+        for barrier in ("cluster_barrier();", "cluster_exit();"):
+            body = body.replace("  " + barrier, "  " + barrier + " STAMP();")
         first = body.index("{") + 1
         body = body[:first] + (" STAMP0();" if kernel else " STAMP();") \
             + body[first:]
-        if kernel and name == "ordered_scatter":   # the long-run warps
-            k = body.rindex("\n}\n")
+        if start.startswith("ordered_scatter_one_kernel"):  # its last
+            k = body.rindex("\n}\n")                        # warps
             body = body[:k] + "\n  __syncthreads(); STAMP();" + body[k:]
         s = s[:a] + body + s[b:]
     return s + _TAIL
@@ -127,12 +142,25 @@ def main() -> dict:
     out = {"card": smoke.card_line(), "sm_clocks": clocks}
     dev = torch.device("cuda", 0)
     lib = load_instrumented("ordered_scatter")
-    for label, o, i, v in smoke.scatter_cases(dev):
+    usage = [(f"rebalance_usage_{T0 + smoke.REB_P}",
+              *smoke.rebalance_usage_case(dev, T0))
+             for T0 in (50_000, 300_000)]
+    for label, o, i, v in smoke.scatter_cases(dev) + usage:
         for _ in range(3):       # the last of three launches
             seg.scatter_add_ordered_(o.clone(), i, v)
             d, total = phases(lib)
         out[f"ordered_scatter {label}"] = {
             "plan": seg.scatter_plan(i.shape[0], o.shape[0]),
+            "cycles_total": total, "cycles_by_phase": d}
+    lib = load_instrumented("sum_ordered")
+    rng = np.random.default_rng(0)
+    for n in (smoke.D_MAIN, smoke.H_MAIN, smoke.SUM_LEVELS_N):
+        x = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(dev)
+        for _ in range(3):
+            seg.sum_ordered(x)
+            d, total = phases(lib)
+        out[f"sum_ordered n{n}"] = {
+            "route": seg.sum_ordered_route(n),
             "cycles_total": total, "cycles_by_phase": d}
     lib = load_instrumented("blocked_cumsum")
     rng = np.random.default_rng(0)

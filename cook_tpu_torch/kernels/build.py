@@ -46,10 +46,16 @@ _SIGNATURES = {
             _I, _I, _LL, _LL, _P, _LL, _P]},
     "ordered_scatter": {
         "ordered_scatter_launch": [_P] * 4 + [_I] * 7 + [_P],
-        "ordered_scatter_sorted_launch": [_P] * 4 + [_I] * 3 + [_P]},
+        "ordered_scatter_sorted_launch": [_P] * 4 + [_I] * 3 + [_P],
+        "ordered_scatter_cluster_launch": [_P] * 3 + [_I] * 4 + [_P],
+        "ordered_scatter_cluster_ctas": [],
+        "ordered_scatter_clusters": []},
     "sum_ordered": {
         "sum_ordered_launch": [_P] * 2 + [_I, _P],
-        "sum_ordered_levels_launch": [_P] * 2 + [_LL, _LL, _I, _P]},
+        "sum_ordered_levels_launch": [_P] * 2 + [_LL, _LL, _I, _P],
+        "sum_ordered_cluster_launch": [_P] * 2 + [_I, _P],
+        "sum_ordered_cluster_ctas": [],
+        "sum_ordered_noop_launch": [_I, _P]},
 }
 
 _lock = threading.Lock()

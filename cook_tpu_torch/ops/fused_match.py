@@ -54,7 +54,8 @@ MAX_GROUPS = 2 ** 24
 LAUNCHES = {"exact_scan": 0, "exact_scan/bonus": 0, "exact_scan/groups": 0,
             "best_host": 0, "best_host/groups": 0, "blocked_cumsum": 0,
             "blocked_cumsum/global": 0, "ordered_scatter": 0,
-            "ordered_scatter/sorted": 0, "sum_ordered": 0,
+            "ordered_scatter/cluster": 0, "ordered_scatter/sorted": 0,
+            "sum_ordered": 0, "sum_ordered/cluster": 0,
             "sum_ordered/levels": 0}
 
 

@@ -178,6 +178,10 @@ def _blocked_cumsum_cuda(values: torch.Tensor) -> torch.Tensor:
 SUM_WINDOW = 32           # XLA-CPU's tree reduction window
 SUM_MAX = SUM_WINDOW * 8192   # the one-CTA kernel keeps its first level
                               # on chip
+# the cluster route: CTA 0 keeps every level-1 sum (<= 8,192) on chip
+SUM_CLUSTER_MAX = SUM_WINDOW * SUM_MAX
+SUM_CLUSTER_CTAS = (8, 16)    # its CTAs: 16 where the card co-schedules
+                              # them, else 8
 
 
 def sum_ordered(x: torch.Tensor) -> torch.Tensor:
@@ -189,9 +193,10 @@ def sum_ordered(x: torch.Tensor) -> torch.Tensor:
     right from 0, and reduces the window sums the same way until at most
     32 remain, which are summed left to right from 0; one element is
     returned as it is (-0.0 stays). CUDA tensors launch
-    csrc/sum_ordered.cu at any length (above SUM_MAX the "levels" route
-    first: sum_ordered_plan); CPU tensors run the plain version;
-    anything else raises."""
+    csrc/sum_ordered.cu at any length, one launch up to SUM_CLUSTER_MAX
+    (sum_ordered_route; beyond it the "levels" route first:
+    sum_ordered_plan); CPU tensors run the plain version; anything else
+    raises."""
     dev = x.device
     if dev.type == "cpu":
         return sum_ordered_plain(x)
@@ -220,16 +225,37 @@ def sum_windows(n: int) -> list[tuple[int, int]]:
 def sum_ordered_plan(n: int) -> list[tuple[int, int, int]]:
     """(values, windows, padding in front) of each tree level that
     sum_ordered's "levels" route reduces over many CTAs, bottom up: the
-    levels while more than SUM_MAX values remain (none for n <= SUM_MAX).
-    The one-CTA kernel then reduces the last level's windows, whose tree
-    (sum_windows) is the rest of n's."""
+    levels while more than SUM_CLUSTER_MAX values remain (none for n <=
+    SUM_CLUSTER_MAX). One launch of sum_ordered_route's kernel then
+    reduces the last level's windows, whose tree (sum_windows) is the
+    rest of n's."""
     out = []
     for nb, lo in sum_windows(n):
-        if n <= SUM_MAX:
+        if n <= SUM_CLUSTER_MAX:
             break
         out.append((n, nb, lo))
         n = nb
     return out
+
+
+def sum_ordered_route(m: int) -> str:
+    """The kernel that sums m <= SUM_CLUSTER_MAX values in one launch:
+    - "sum_ordered": m <= SUM_MAX; one CTA, its first level's window
+      sums on chip;
+    - "sum_ordered/cluster": beyond; one cluster, each CTA owning a
+      contiguous range of level-1 windows (sum_cluster_ranges), which
+      it sums from device memory and writes to CTA 0 over DSMEM; CTA 0
+      finishes the tree as the one-CTA kernel does."""
+    return "sum_ordered" if m <= SUM_MAX else "sum_ordered/cluster"
+
+
+def sum_cluster_ranges(n: int, ctas: int) -> list[tuple[int, int]]:
+    """[first, last) level-1 windows (32 level-0 windows of 32 elements,
+    sum_windows' second level) of each CTA of the cluster route, for n
+    values: ceil(windows / ctas) a CTA, in order."""
+    nb1 = sum_windows(n)[1][0]
+    q = -(-nb1 // ctas)
+    return [(min(nb1, r * q), min(nb1, (r + 1) * q)) for r in range(ctas)]
 
 
 def sum_ordered_plain(x: torch.Tensor) -> torch.Tensor:
@@ -283,11 +309,13 @@ def _sum_ordered_cuda(x: torch.Tensor) -> torch.Tensor:
                                    f"failed: CUDA error {rc}")
             count(LAUNCHES, "sum_ordered/levels")
             src, m, off = dst, nb, off + nb
-        rc = lib.sum_ordered_launch(src, buf.data_ptr(), m, stream)
+        route = sum_ordered_route(m)
+        launch = lib.sum_ordered_launch if route == "sum_ordered" \
+            else lib.sum_ordered_cluster_launch
+        rc = launch(src, buf.data_ptr(), m, stream)
     if rc != 0:
-        raise RuntimeError(f"sum_ordered kernel launch failed: CUDA error "
-                           f"{rc}")
-    count(LAUNCHES, "sum_ordered")
+        raise RuntimeError(f"{route} kernel launch failed: CUDA error {rc}")
+    count(LAUNCHES, route)
     return buf[0]
 
 
@@ -320,6 +348,37 @@ def _check_scatter(out, idx, vals):
 SCATTER_ONE_MAX_N = 32768   # updates one CTA sorts in shared memory
 SCATTER_ONE_MAX_T = 65535   # targets: a key and the drop bucket in 16 bits
 SCATTER_DIGIT_MAX = 9       # radix digit bits (512 bins x 32 warps)
+# the cluster route: G clusters of C CTAs, cluster g owning a contiguous
+# range of targets, whose keys it sorts in one pass of <= 10 bits; a
+# CTA's shared memory (226 KB, in 4-byte words) holds 36 words a row (its
+# 32 warps' cursors and a pad word, its total, its base, its run's
+# start; at most T + 1 rows counted here), the walking warps' staging
+# (16 warps x 32 updates x 4 floats) and its share of the cluster's
+# sorted update indices, up to ceil(n / C) rounded up to 32 (every key
+# may fall in one cluster's range), at C = 8 CTAs (the fewest a cluster
+# has: 16 where the card co-schedules them), so the route does not
+# depend on the card
+SCATTER_CLUSTER_MAX_T = 1023
+SCATTER_CLUSTER_ROW_WORDS = 36
+SCATTER_CLUSTER_STAGE_WORDS = 16 * 32 * 4
+SCATTER_CLUSTER_SMEM_WORDS = 226 * 1024 // 4
+SCATTER_CLUSTER_CTAS = (8, 16)
+
+
+def scatter_cluster_slots(n: int, ctas: int) -> int:
+    """Sorted places (update indices) each CTA of the cluster route
+    holds: ceil(n / ctas), rounded up to whole warps."""
+    return -(-(-(-n // ctas)) // 32) * 32
+
+
+def scatter_cluster_max_n(T: int) -> int:
+    """The largest n the cluster route takes onto T targets (0 for T
+    beyond SCATTER_CLUSTER_MAX_T)."""
+    if T > SCATTER_CLUSTER_MAX_T:
+        return 0
+    free = SCATTER_CLUSTER_SMEM_WORDS - SCATTER_CLUSTER_ROW_WORDS * (T + 1) \
+        - SCATTER_CLUSTER_STAGE_WORDS
+    return SCATTER_CLUSTER_CTAS[0] * (free // 32 * 32)
 
 
 def scatter_plan(n: int, T: int) -> tuple[str, int, tuple[int, ...]]:
@@ -330,9 +389,19 @@ def scatter_plan(n: int, T: int) -> tuple[str, int, tuple[int, ...]]:
       words by key with a stable LSD radix sort over the bits of 0..T
       (T is the drop bucket), one or two passes of at most
       SCATTER_DIGIT_MAX bits, then walks each target's run in order;
+    - "ordered_scatter/cluster": n up to scatter_cluster_max_n(T) (T <=
+      SCATTER_CLUSTER_MAX_T: the rebalancer's and the usage's calls past
+      32,768 updates); one launch of G thread-block clusters, each
+      owning a contiguous range of targets: it sorts the indices of the
+      updates whose key falls there in one counting pass (digits: the
+      bits of T, bounding a range's; no words: jbits 0), the sorted
+      places spread over its CTAs' shared memory, then walks each
+      target's run in order, a warp a run;
     - "ordered_scatter/sorted": beyond; a stable torch.sort of the int32
       keys, then a kernel that walks each run."""
     if n > SCATTER_ONE_MAX_N or T > SCATTER_ONE_MAX_T:
+        if n <= scatter_cluster_max_n(T):
+            return "ordered_scatter/cluster", 0, (T.bit_length(),)
         return "ordered_scatter/sorted", 0, ()
     jbits = max(1, (n - 1).bit_length())
     kbits = T.bit_length()
@@ -414,10 +483,15 @@ def _scatter_add_ordered_cuda(out, idx, vals):
     dev = out.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if route == "ordered_scatter":
+        if route != "ordered_scatter/sorted":
             if idx.dtype not in (torch.int32, torch.int64):
                 idx = idx.to(torch.int32)
             idx = idx.contiguous()
+        if route == "ordered_scatter/cluster":
+            rc = lib.ordered_scatter_cluster_launch(
+                idx.data_ptr(), vals.data_ptr(), out.data_ptr(), n, T, k,
+                int(idx.dtype == torch.int64), stream)
+        elif route == "ordered_scatter":
             # the first of two radix passes writes its words here where
             # the kernel cannot keep them on chip (n above ~16,000)
             ping = torch.empty(n if len(digits) == 2 else 0,
@@ -441,6 +515,35 @@ def _scatter_add_ordered_cuda(out, idx, vals):
                            f"{rc}")
     count(LAUNCHES, route)
     return out
+
+
+def scatter_cluster_grid() -> tuple[int, int]:
+    """(CTAs a cluster, clusters at most) of the cluster scatter's
+    launches on this card: 16 CTAs where it co-schedules a cluster of 16
+    at the route's most shared memory, else 8; as many clusters as run at
+    once, at most 16. Needs a CUDA device."""
+    from cook_tpu_torch.kernels import build
+    lib = build.load("ordered_scatter")
+    return lib.ordered_scatter_cluster_ctas(), lib.ordered_scatter_clusters()
+
+
+def sum_cluster_ctas() -> int:
+    """CTAs of the cluster sum's launches on this card (16, else 8).
+    Needs a CUDA device."""
+    from cook_tpu_torch.kernels import build
+    return build.load("sum_ordered").sum_ordered_cluster_ctas()
+
+
+def noop_launch(kind: str = "one_cta") -> None:
+    """Launch an empty kernel on the current stream: one CTA of 32
+    threads ("one_cta") or one cluster of the cluster sum's CTAs of
+    1,024 threads ("cluster"); the launch floor the segment kernels'
+    times are read against. Counted nowhere. Needs a CUDA device."""
+    from cook_tpu_torch.kernels import build
+    rc = build.load("sum_ordered").sum_ordered_noop_launch(
+        int(kind == "cluster"), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")
 
 
 def segment_rank(seg_ids: torch.Tensor) -> torch.Tensor:

@@ -21,9 +21,13 @@ chip_smoke.py, the same for both:
   rank's; (131072, 2); (8192,); (16384,));
 - ordered_scatter: chip_smoke.scatter_cases (8,192 bids over 16,384
   hosts, k=3; 32,768 tasks over 500 users with a 2,337-update run, k=3;
-  2,048 credits onto a 16,384-host lane), added onto a working copy;
-- sum_ordered: n = 1,024 (D) and 16,384 (H); absent from packages
-  before it existed.
+  2,048 credits onto a 16,384-host lane) and the rebalancer's usage
+  (chip_smoke.rebalance_usage_case: 50,064 and 300,064 task slots over
+  501 users, k=2: the cluster route, /sorted before it), added onto a
+  working copy;
+- sum_ordered: n = 1,024 (D), 16,384 (H) and 300,064 (the 300k
+  rebalance pool's T: the cluster route, /levels before it); absent
+  from packages before it existed.
 Each case is held bit-equal to the package's plain version first, then
 timed by CUDA events around `reps` back-to-back calls:
 - "events_ms": the first event recorded right after a sync. Where the
@@ -131,7 +135,10 @@ def cases(kernel, smoke, dev):
                                lambda x=x: (seg.blocked_cumsum_plain(x),),
                                call)
     elif kernel == "ordered_scatter":
-        for label, o, i, v in smoke.scatter_cases(dev):
+        usage = [(f"rebalance_usage_{T0 + smoke.REB_P}x{smoke.REB_U + 1}",
+                  *smoke.rebalance_usage_case(dev, T0))
+                 for T0 in (50_000, 300_000)]
+        for label, o, i, v in smoke.scatter_cases(dev) + usage:
             w = o.clone()
             out[label] = (
                 lambda o=o, i=i, v=v: (
@@ -143,7 +150,7 @@ def cases(kernel, smoke, dev):
         if not hasattr(seg, "sum_ordered"):
             return None
         rng = np.random.default_rng(17)
-        for n in (smoke.D_MAIN, smoke.H_MAIN):
+        for n in (smoke.D_MAIN, smoke.H_MAIN, smoke.SUM_LEVELS_N):
             x = torch.from_numpy((10.0 ** rng.uniform(-3, 3, n)
                                   * rng.choice([-1.0, 1.0], n))
                                  .astype(np.float32)).to(dev)

@@ -576,6 +576,43 @@ def test_ordered_scatter_kernel_equals_plain_on_cuda(monkeypatch):
 
 
 @pytest.mark.cuda
+def test_ordered_scatter_cluster_route_on_cuda(monkeypatch):
+    """The rebalancer's usage scatter (chip_smoke.rebalance_usage_case:
+    50,064 and 300,064 task slots over 501 users, k=2) takes the cluster
+    route, one launch a call and no torch.sort: bit-equal to its plain
+    version, to itself from run to run and to the plain version on the
+    CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs on the GPU machine only")
+    import chip_smoke
+    from cook_tpu_torch.ops import fused_match as fm
+    from cook_tpu_torch.ops import segments
+
+    bits = lambda t: t.view(torch.int32)
+    for T0 in (50_000, 300_000):
+        out, idx, vals = chip_smoke.rebalance_usage_case(
+            torch.device("cuda"), T0)
+        assert segments.scatter_plan(idx.shape[0], out.shape[0])[0] == \
+            "ordered_scatter/cluster"
+        want = segments.scatter_add_ordered_plain_(out.clone(), idx, vals)
+        before = dict(fm.LAUNCHES)
+        with monkeypatch.context() as m:
+            m.setattr(segments, "scatter_add_ordered_plain_", None)
+            m.setattr(torch, "sort", None)
+            first = segments.scatter_add_ordered_(out.clone(), idx, vals)
+            second = segments.scatter_add_ordered_(out.clone(), idx, vals)
+        torch.cuda.synchronize()
+        assert fm.LAUNCHES["ordered_scatter/cluster"] == \
+            before["ordered_scatter/cluster"] + 2, T0
+        assert sum(fm.LAUNCHES.values()) == sum(before.values()) + 2, T0
+        assert torch.equal(bits(first), bits(want)), T0
+        assert torch.equal(bits(first), bits(second)), T0
+        ref = segments.scatter_add_ordered_plain_(out.cpu(), idx.cpu(),
+                                                  vals.cpu())
+        assert torch.equal(bits(first.cpu()), bits(ref)), T0
+
+
+@pytest.mark.cuda
 def test_host_depletion_is_bit_reproducible_on_cuda():
     """apply_accept's per-host depletion of demands spanning 2**30 (wider
     than any f32 sum is exact over) goes through the ordered_scatter
@@ -627,9 +664,11 @@ def test_sum_ordered_rejects_other_devices():
 def test_sum_ordered_kernel_equals_plain_on_cuda(monkeypatch):
     """The ordered f32 sum kernel is bit-equal to its plain version (which
     tests/test_torch_sum.py holds bit-equal to XLA-CPU's jnp.sum) and to
-    itself from run to run, one launch a call, at chip_smoke.py's sizes:
-    one element (-0.0 stays), sizes around a window and a level, the
-    dense round's D = 1,024 and H = 16,384, the kernel's largest n."""
+    itself from run to run, its last launch on the route
+    sum_ordered_route names, at chip_smoke.py's sizes: one element (-0.0
+    stays), sizes around a window and a level, the dense round's D =
+    1,024 and H = 16,384, the one-CTA kernel's largest n, the cluster's,
+    and beyond."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: runs on the GPU machine only")
     import chip_smoke
@@ -639,23 +678,29 @@ def test_sum_ordered_kernel_equals_plain_on_cuda(monkeypatch):
     bits = lambda t: t.view(torch.int32)
     for label, x in chip_smoke.sum_cases(torch.device("cuda")):
         want = segments.sum_ordered_plain(x)
-        before = fm.LAUNCHES["sum_ordered"]
+        plan = segments.sum_ordered_plan(x.shape[0])
+        route = segments.sum_ordered_route(
+            plan[-1][1] if plan else x.shape[0])
+        before = fm.LAUNCHES[route]
         with monkeypatch.context() as m:
             m.setattr(segments, "sum_ordered_plain", None)
             first = segments.sum_ordered(x)
             second = segments.sum_ordered(x)
         torch.cuda.synchronize()
-        assert fm.LAUNCHES["sum_ordered"] == before + 2, label
+        assert fm.LAUNCHES[route] == before + 2, label
         assert torch.equal(bits(first), bits(want)), label
         assert torch.equal(bits(first), bits(second)), label
 
 
 @pytest.mark.cuda
 def test_sum_ordered_levels_route_on_cuda(monkeypatch):
-    """Past 262,144 elements sum_ordered first reduces the lower tree
-    levels over many CTAs (the counted "levels" route: one launch a
-    level), then runs the one-CTA kernel: bit-equal to its plain
-    version and run to run at 262,145, ~1M and 8,388,609 (two levels)."""
+    """Past 262,144 elements sum_ordered is one launch of one cluster
+    (the counted "sum_ordered/cluster" route) up to 8,388,608; beyond, it
+    first reduces the lower tree levels over many CTAs (the counted
+    "levels" route: one launch a level), then runs the cluster: bit-equal
+    to its plain version and run to run at 262,145, the 300k rebalance
+    pool's T, ~1M, 8,388,608 and 8,388,609 (a level, then the
+    cluster)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: runs on the GPU machine only")
     from cook_tpu_torch.ops import fused_match as fm
@@ -663,12 +708,14 @@ def test_sum_ordered_levels_route_on_cuda(monkeypatch):
 
     rng = np.random.default_rng(19)
     bits = lambda t: t.view(torch.int32)
-    for n in (262145, 1048573, 8388609):
+    for n in (262145, 300064, 1048573, segments.SUM_CLUSTER_MAX,
+              segments.SUM_CLUSTER_MAX + 1):
         x = torch.from_numpy((10.0 ** rng.uniform(-3, 3, n)
                               * rng.choice([-1.0, 1.0], n))
                              .astype(np.float32)).to("cuda")
         want = segments.sum_ordered_plain(x)
         levels = len(segments.sum_ordered_plan(n))
+        assert levels == (n > segments.SUM_CLUSTER_MAX), n
         before = dict(fm.LAUNCHES)
         with monkeypatch.context() as m:
             m.setattr(segments, "sum_ordered_plain", None)
@@ -677,7 +724,9 @@ def test_sum_ordered_levels_route_on_cuda(monkeypatch):
         torch.cuda.synchronize()
         assert fm.LAUNCHES["sum_ordered/levels"] == \
             before["sum_ordered/levels"] + 2 * levels, n
-        assert fm.LAUNCHES["sum_ordered"] == before["sum_ordered"] + 2, n
+        assert fm.LAUNCHES["sum_ordered/cluster"] == \
+            before["sum_ordered/cluster"] + 2, n
+        assert fm.LAUNCHES["sum_ordered"] == before["sum_ordered"], n
         assert torch.equal(bits(first), bits(want)), n
         assert torch.equal(bits(first), bits(second)), n
 
@@ -746,10 +795,10 @@ def test_blocked_cumsum_routes_on_cuda():
 def test_ordered_scatter_edges_on_cuda():
     """ordered_scatter at its edges (chip_smoke.scatter_edges: one
     target, all dropped, int64 keys beyond int32, k = 1..4, many long
-    runs, the credits' transposed copy, and the shapes beyond the
-    one-launch route): bit-equal to its plain version and run to run,
-    one launch a call under the route scatter_plan names, and the
-    one-launch route calls no torch.sort."""
+    runs, the credits' transposed copy, the cluster route's edges, and
+    the shapes beyond it): bit-equal to its plain version and run to
+    run, one launch a call under the route scatter_plan names, and the
+    one-launch and the cluster route call no torch.sort."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: runs on the GPU machine only")
     import chip_smoke
@@ -763,8 +812,8 @@ def test_ordered_scatter_edges_on_cuda():
         route = segments.scatter_plan(idx.shape[0], out.shape[0])[0]
         want = segments.scatter_add_ordered_plain_(out.clone(), idx, vals)
         before = fm.LAUNCHES[route]
-        if route == "ordered_scatter":
-            torch.sort = None       # the one-launch route sorts on chip
+        if route != "ordered_scatter/sorted":
+            torch.sort = None       # the on-chip routes sort on chip
         try:
             first = segments.scatter_add_ordered_(out.clone(), idx, vals)
             second = segments.scatter_add_ordered_(out.clone(), idx, vals)

@@ -126,17 +126,37 @@ def test_scatter_checks():
     (1, 1, "ordered_scatter", 1, (1,)),
     (7, 300, "ordered_scatter", 3, (9,)),
     (32768, 65535, "ordered_scatter", 15, (8, 8)),
-    (32769, 500, "ordered_scatter/sorted", 0, ()),
+    # past one CTA: the usage (T = 500), the rebalancer's usage at 50k
+    # and 300k tasks (T = 501), one cluster launch
+    (32769, 500, "ordered_scatter/cluster", 0, (9,)),
+    (50064, 501, "ordered_scatter/cluster", 0, (9,)),
+    (300064, 501, "ordered_scatter/cluster", 0, (9,)),
+    # the cluster's capacity edges at T = 501, 1,023 and 1,024
+    (301824, 501, "ordered_scatter/cluster", 0, (9,)),
+    (301825, 501, "ordered_scatter/sorted", 0, ()),
+    (151552, 1023, "ordered_scatter/cluster", 0, (10,)),
+    (151553, 1023, "ordered_scatter/sorted", 0, ()),
+    (32769, 1024, "ordered_scatter/sorted", 0, ()),
     (100, 65536, "ordered_scatter/sorted", 0, ())])
 def test_scatter_plan(n, T, route, jbits, digits):
     """The shape rule and the radix plan of the one-launch route: every
     main-path call takes it; a word (key << jbits | j) holds 0..T and
     0..n-1 in 31 bits; one or two passes of <= 9-bit digits cover the
-    key's bits."""
+    key's bits. The cluster route sorts by all the key's bits (0..T) in
+    one pass and fits a CTA's shared memory at 8 CTAs."""
     assert tseg.scatter_plan(n, T) == (route, jbits, digits)
     if route == "ordered_scatter":
         assert (1 << jbits) >= n and sum(digits) == T.bit_length()
         assert jbits + sum(digits) <= 31 and max(digits) <= 9
+    if route == "ordered_scatter/cluster":
+        assert (1 << digits[0]) > T and digits[0] <= 10
+        assert n <= tseg.scatter_cluster_max_n(T)
+        assert tseg.SCATTER_CLUSTER_ROW_WORDS * (T + 1) \
+            + tseg.SCATTER_CLUSTER_STAGE_WORDS \
+            + tseg.scatter_cluster_slots(n, 8) \
+            <= tseg.SCATTER_CLUSTER_SMEM_WORDS
+    elif n > tseg.SCATTER_ONE_MAX_N or T > tseg.SCATTER_ONE_MAX_T:
+        assert n > tseg.scatter_cluster_max_n(T)
 
 
 def _radix_model(idx, T, warps=32):
@@ -183,7 +203,108 @@ def test_radix_model_is_a_stable_sort(n, T):
     np.testing.assert_array_equal(key, clamped[order])
 
 
-@pytest.mark.parametrize("name", ["ordered_scatter", "blocked_cumsum"])
+def _cluster_model(idx, T, ctas, clusters, warps=32):
+    """The cluster kernel's sort in numpy, step for step: cluster g owns
+    targets [g tq, g tq + tq) (tq = ceil(T / clusters)); in each, CTA r's
+    slice of the updates (scatter_cluster_slots a CTA), each warp's part
+    of it, per-warp histograms of the keys in the cluster's range, the
+    exclusive scan of the (key, CTA, warp) cells in that order, then each
+    warp's update indices placed in order (the cluster's m places spread
+    evenly: p in CTA p // pq, pq = scatter_cluster_slots(m) and at least
+    32). Returns each cluster's sorted update indices, in cluster order,
+    and each kept key's first place among them."""
+    n = len(idx)
+    per = tseg.scatter_cluster_slots(n, ctas)
+    tq = -(-T // clusters)
+    parts = []
+    for r in range(ctas):
+        c0, c1 = min(n, r * per), min(n, (r + 1) * per)
+        pw = -(-(-(-(c1 - c0) // warps)) // 32) * 32
+        for w in range(warps):
+            w0 = min(c1, c0 + w * pw)
+            parts.append((r, w, w0, min(c1, w0 + pw)))
+    out, starts, done = [], [], 0
+    for t0 in range(0, T, tq):
+        R = min(T, t0 + tq) - t0
+        row = np.where((idx >= t0) & (idx < t0 + R), idx - t0, -1)
+        hist = np.zeros((R, ctas, warps), np.int64)
+        for r, w, a, b in parts:
+            k = row[a:b]
+            hist[:, r, w] = np.bincount(k[k >= 0], minlength=R)
+        flat = hist.reshape(-1)
+        cursor = (np.cumsum(flat) - flat).reshape(hist.shape)
+        kept = int(flat.sum())
+        pq = max(32, tseg.scatter_cluster_slots(kept, ctas))
+        assert pq <= per
+        places = np.full((ctas, pq), -1, np.int64)
+        for r, w, a, b in parts:
+            j = np.arange(a, b)[row[a:b] >= 0]
+            k = row[j]
+            order = np.argsort(k, kind="stable")
+            ks = k[order]
+            rank = np.empty(len(k), np.int64)
+            rank[order] = np.arange(len(k)) - np.searchsorted(ks, ks)
+            p = cursor[k, r, w] + rank
+            places[p // pq, p % pq] = j
+        out.append(places.reshape(-1)[:kept])
+        starts.append(done + cursor[:, 0, 0])
+        done += kept
+    return np.concatenate(out), np.concatenate(starts)
+
+
+@pytest.mark.parametrize("ctas,clusters", [(8, 16), (16, 8), (16, 1)])
+@pytest.mark.parametrize("n,T", [(32769, 500), (50064, 501), (300064, 501),
+                                 (301824, 501), (151552, 1023)])
+def test_cluster_model_is_a_stable_sort(n, T, ctas, clusters):
+    """The cluster kernel's sort (modelled above: 8 or 16 CTAs a
+    cluster, as many clusters as run at once) equals a stable argsort of
+    the kept keys, and each key's first place is where its run starts: a
+    warp walking places [start[t], start[t + 1]) sees target t's updates
+    in update order. A tenth of the updates are one heavy user's (a run
+    across CTAs); some keys fall outside [0, T) on both sides."""
+    rng = np.random.default_rng(n + T + ctas)
+    idx = np.where(rng.random(n) < 0.1, T // 3,
+                   rng.integers(-3, T + 3, n)).astype(np.int64)
+    j, start = _cluster_model(idx, T, ctas, clusters)
+    kept = np.flatnonzero((idx >= 0) & (idx < T))
+    order = kept[np.argsort(idx[kept], kind="stable")]
+    np.testing.assert_array_equal(j, order)
+    np.testing.assert_array_equal(
+        start, np.searchsorted(idx[order], np.arange(T)))
+
+
+def test_cluster_model_every_key_dropped_and_one_target():
+    """Edges of the cluster's sort: every key dropped (nothing placed),
+    every update on one target (one run over every CTA's places)."""
+    n, T = 50064, 501
+    j, start = _cluster_model(np.full(n, -1, np.int64), T, 16, 8)
+    assert len(j) == 0 and not start.any()
+    j, start = _cluster_model(np.full(n, 7, np.int64), T, 16, 8)
+    np.testing.assert_array_equal(j, np.arange(n))
+    np.testing.assert_array_equal(start, np.where(np.arange(T) > 7, n, 0))
+
+
+def test_rebalance_usage_shape_equals_segment_sum():
+    """At the rebalancer's usage shape (50,064 task slots over 501
+    targets, k=2: the cluster route's main-path call) the port's scatter
+    equals jax.ops.segment_sum bit for bit."""
+    rng = np.random.default_rng(21)
+    n, T = 50064, 501
+    idx = np.concatenate([rng.integers(0, T - 1, n - 64),
+                          np.full(64, T - 1)]).astype(np.int32)
+    vals = (10.0 ** rng.uniform(-3, 3, (n, 2))
+            * rng.choice([-1.0, 1.0], (n, 2))).astype(np.float32)
+    assert tseg.scatter_plan(n, T)[0] == "ordered_scatter/cluster"
+    ref = jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(idx),
+                              num_segments=T)
+    got = tseg.scatter_add_ordered_(torch.zeros((T, 2)),
+                                    torch.from_numpy(idx),
+                                    torch.from_numpy(vals))
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(ref))
+
+
+@pytest.mark.parametrize("name", ["ordered_scatter", "blocked_cumsum",
+                                  "sum_ordered"])
 def test_kernel_phases_stamps_every_barrier(name):
     """kernel_phases' instrumented copy of a kernel source stamps after
     every barrier of the functions it names and leaves the rest of the
@@ -197,13 +318,15 @@ def test_kernel_phases_stamps_every_barrier(name):
     regions = kernel_phases._REGIONS[name]
     assert inst.count("STAMP0();") == sum(k for _, _, k in regions)
     stamped = inst.count("__syncthreads(); STAMP();") \
-        + inst.count("cluster_barrier(); STAMP();")
+        + inst.count("cluster_barrier(); STAMP();") \
+        + inst.count("cluster_exit(); STAMP();")
     barriers = 0
     for start, end, _ in regions:
         a = src.index(start)
         body = src[a:src.index(end, a)]
         barriers += body.count("__syncthreads();") \
-            + body.count("  cluster_barrier();")
+            + body.count("  cluster_barrier();") \
+            + body.count("  cluster_exit();")
     assert stamped == barriers + (name == "ordered_scatter")
     back = inst.replace(kernel_phases._HEAD, "", 1)[:-len(kernel_phases._TAIL)]
     if name == "ordered_scatter":       # the stamp at the kernel's end

@@ -6,8 +6,11 @@ config dict (64 mock hosts in two pools, resident match on, pipeline
 depth 0, statuses applied inline for a fixed order): cook_tpu on JAX's CPU backend with `use_pallas: false`, the
 port with `device="cpu"` (its plain PyTorch versions) and `use_pallas`
 as true, false and "auto" (the port has no such switch, so all three
-must give the same result). Clocks and uuids are pinned as in
-tests/torch_coord_harness.py. The same jobs are posted through
+must give the same result). Clocks are pinned as in
+tests/torch_coord_harness.py, and uuids count per thread role (the
+resident consumer thread makes task ids while the main thread records
+spans: one shared counter would number them as the threads' timing
+falls). The same jobs are posted through
 `CookApi.handle`, and for the port also over HTTP through one
 `ApiServer`; match and rebalance cycles are driven by hand. The runs
 must launch the same (job, host) pairs cycle by cycle, preempt the same
@@ -28,6 +31,7 @@ import itertools
 import json
 import logging
 import os
+import re
 import signal
 import socket
 import subprocess
@@ -37,6 +41,7 @@ import time
 import urllib.error
 import urllib.request
 import uuid
+import zlib
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -123,12 +128,21 @@ def scenario(root, use_pallas=False, transport="handle"):
     state and instances and the REST bodies."""
     server_mod = importlib.import_module(f"{root}.rest.server")
     model = importlib.import_module(f"{root}.state.model")
-    counter = itertools.count(1)
+    counters = {}
     lock = threading.Lock()
 
     def uuid4():
+        # one counter per thread role, so that no uuid depends on how
+        # two threads' calls interleave (the consumer thread makes task
+        # ids while the main thread records the cycle's spans). The
+        # main thread and the HTTP request threads, which run while it
+        # waits on them, share role 0; a pool of workers shares its role
+        name = threading.current_thread().name
+        role = 0 if name == "MainThread" or name.startswith("Thread-") \
+            else zlib.crc32(re.sub(r"[0-9]+", "", name).encode())
         with lock:
-            return uuid.UUID(int=next(counter))
+            n = counters[role] = counters.get(role, 0) + 1
+        return uuid.UUID(int=role << 80 | n)
 
     saved = (uuid.uuid4, time.time)
     uuid.uuid4, time.time = uuid4, (lambda: WALL)
@@ -172,9 +186,14 @@ def scenario(root, use_pallas=False, transport="handle"):
         def cycles(n, advance_s):
             for _ in range(n):
                 for p in POOLS:
-                    stats = coord.match_cycle(p)
+                    coord.match_cycle(p)
                     coord.drain_resident(p)
-                    trace.append(("cycle", p, stats.matched, launches()))
+                    # match_cycle returns the stats of the last cycle the
+                    # consumer thread had consumed by then: this cycle's
+                    # or the one before, as the threads' timing falls.
+                    # Drained, the pool's consumed stats are this cycle's
+                    matched = coord._resident[p].stats_last["matched"]
+                    trace.append(("cycle", p, matched, launches()))
                 for c in clusters:
                     c.advance(advance_s)
 
@@ -243,6 +262,27 @@ def test_server_equals_cook_tpu(reference, use_pallas, transport):
     assert sum(len(t[3]) for t in reference if t[0] == "cycle") > 300
     assert any(t[2] for t in reference if t[0] == "rebalance")
     assert kinds.count("GET /unscheduled") == 25
+    assert got == reference, _first_diff(got, reference)
+
+
+def test_server_trace_does_not_depend_on_the_consumer_timing(
+        reference, monkeypatch):
+    """The resident consumer thread finishing each cycle before
+    match_cycle reads the pool's last consumed stats (the order a loaded
+    machine can give; the harness once recorded match_cycle's lagging
+    stats and then differed from cook_tpu by a cycle) leaves the trace
+    equal to cook_tpu's."""
+    from cook_tpu_torch.scheduler.shards import InOrderShards
+
+    submit = InOrderShards.submit
+
+    def submit_and_wait(self, key, *args, **kwargs):
+        submit(self, key, *args, **kwargs)
+        with self._idle:
+            assert self._idle.wait_for(lambda: self._inflight == 0, 60)
+
+    monkeypatch.setattr(InOrderShards, "submit", submit_and_wait)
+    got = scenario("cook_tpu_torch", False, "http")
     assert got == reference, _first_diff(got, reference)
 
 

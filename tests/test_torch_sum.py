@@ -214,29 +214,117 @@ def test_axis0_sum_no_columns():
     assert trb.sum_cols_ordered(torch.zeros((7, 0))).shape == (0,)
 
 
-@pytest.mark.parametrize("n", [262145, 300000, 1048577])
+@pytest.mark.parametrize("n", [262145, 300000, 1048577, 8388609])
 def test_sum_ordered_past_the_one_cta_limit(n):
     """Past SUM_MAX (262,144, the one-CTA kernel's first level on chip)
-    the plain version still takes XLA's order, and sum_ordered_plan names
-    the levels the CUDA route reduces over many CTAs before the one-CTA
-    kernel: the rest of the tree is that of the last level's windows."""
+    the plain version still takes XLA's order. Up to SUM_CLUSTER_MAX
+    the CUDA route is one cluster launch (sum_ordered_plan names no
+    level); beyond it sum_ordered_plan names the levels the "levels"
+    route reduces over many CTAs first, and the rest of the tree is
+    that of the last level's windows, summed by one launch."""
     rng = np.random.default_rng(n)
     x = mixed(rng, n)
     np.testing.assert_array_equal(
         bits(tseg.sum_ordered(torch.from_numpy(x)).numpy()),
         bits(np.asarray(_sum(x))))
     plan = tseg.sum_ordered_plan(n)
-    assert plan and plan[0][0] == n and plan[-1][1] <= tseg.SUM_MAX
     windows = tseg.sum_windows(n)
+    if n <= tseg.SUM_CLUSTER_MAX:
+        assert plan == [] and tseg.sum_ordered_route(n) == \
+            "sum_ordered/cluster"
+        return
+    assert plan and plan[0][0] == n and \
+        tseg.SUM_MAX < plan[-1][1] <= tseg.SUM_CLUSTER_MAX
     assert [(nb, lo) for _, nb, lo in plan] == windows[:len(plan)]
     assert tseg.sum_windows(plan[-1][1]) == windows[len(plan):]
+    assert tseg.sum_ordered_route(plan[-1][1]) == "sum_ordered/cluster"
 
 
 def test_sum_ordered_plan_edges():
     assert tseg.sum_ordered_plan(tseg.SUM_MAX) == []
-    assert tseg.sum_ordered_plan(tseg.SUM_MAX + 1) == [
-        (tseg.SUM_MAX + 1, 8193, 15)]
-    # two level launches once the first level's windows exceed SUM_MAX
-    n = 32 * tseg.SUM_MAX + 1
+    assert tseg.sum_ordered_route(tseg.SUM_MAX) == "sum_ordered"
+    # one cluster launch past the one-CTA kernel, up to SUM_CLUSTER_MAX
+    assert tseg.sum_ordered_plan(tseg.SUM_MAX + 1) == []
+    assert tseg.sum_ordered_route(tseg.SUM_MAX + 1) == "sum_ordered/cluster"
+    assert tseg.SUM_CLUSTER_MAX == 32 * tseg.SUM_MAX
+    assert tseg.sum_ordered_plan(tseg.SUM_CLUSTER_MAX) == []
+    assert tseg.sum_ordered_route(tseg.SUM_CLUSTER_MAX) == \
+        "sum_ordered/cluster"
+    # beyond it a level launch first, then the cluster
+    assert tseg.sum_ordered_plan(tseg.SUM_CLUSTER_MAX + 1) == [
+        (tseg.SUM_CLUSTER_MAX + 1, tseg.SUM_MAX + 1, 15)]
+    # two level launches once the first level's windows exceed
+    # SUM_CLUSTER_MAX
+    n = 32 * tseg.SUM_CLUSTER_MAX + 1
     assert [m for m, _, _ in tseg.sum_ordered_plan(n)] == \
-        [n, tseg.SUM_MAX + 1]
+        [n, tseg.SUM_CLUSTER_MAX + 1]
+
+
+# the cluster route's lengths: the first past the one-CTA kernel, the
+# 300k rebalance pool's T, the route's largest
+CLUSTER_N = [tseg.SUM_MAX + 1, 300064, tseg.SUM_CLUSTER_MAX]
+
+
+@pytest.mark.parametrize("ctas", tseg.SUM_CLUSTER_CTAS)
+@pytest.mark.parametrize("n", CLUSTER_N)
+def test_sum_cluster_ranges_cover_every_level1_window(n, ctas):
+    """The cluster's CTAs own contiguous level-1 windows that cover
+    every window of sum_windows' second level once, in order (CTA 0's
+    shared memory then holds every level-1 sum: at most 8,192, and at
+    most 1,024 a CTA)."""
+    nb1 = tseg.sum_windows(n)[1][0]
+    ranges = tseg.sum_cluster_ranges(n, ctas)
+    assert len(ranges) == ctas and ranges[0][0] == 0
+    assert ranges[-1][1] == nb1 <= 8192
+    for (a, b), (c, _) in zip(ranges, ranges[1:]):
+        assert a <= b == c
+    assert max(b - a for a, b in ranges) <= 8192 // 8
+
+
+def _cluster_sum_model(x, ctas):
+    """The cluster kernel's order in numpy f32, step for step: level-0
+    window sums of 32 elements (the padding split as sum_windows says),
+    each CTA's level-1 windows summed from its range of level-0 sums
+    (padding windows count as -0.0), the level-1 sums gathered in CTA
+    0, which sums the levels above them a window at a time and the last
+    <= 32 values left to right, each from +0.0."""
+    def level(v, lo, nb):
+        pad = np.full(nb * 32, -0.0, np.float32)
+        pad[lo:lo + len(v)] = v
+        w = pad.reshape(nb, 32)
+        acc = np.zeros(nb, np.float32)
+        for j in range(32):
+            acc = (acc + w[:, j]).astype(np.float32)
+        return acc
+
+    n = len(x)
+    (nb0, lo0), (nb1, lo1) = tseg.sum_windows(n)[:2]
+    s0 = level(x, lo0, nb0)
+    l1 = np.empty(nb1, np.float32)
+    for a, b in tseg.sum_cluster_ranges(n, ctas):
+        for b1 in range(a, b):
+            acc = np.float32(0.0)
+            for i in range(32):
+                b0 = 32 * b1 - lo1 + i
+                acc = np.float32(acc + (s0[b0] if 0 <= b0 < nb0
+                                        else np.float32(-0.0)))
+            l1[b1] = acc
+    v = l1
+    for nb, lo in tseg.sum_windows(nb1):
+        v = level(v, lo, nb)
+    acc = np.float32(0.0)
+    for e in v:
+        acc = np.float32(acc + e)
+    return acc
+
+
+@pytest.mark.parametrize("ctas", tseg.SUM_CLUSTER_CTAS)
+@pytest.mark.parametrize("n", CLUSTER_N)
+def test_cluster_sum_model_equals_plain(n, ctas):
+    """The cluster kernel's order (modelled above, 8 or 16 CTAs) is the
+    plain version's, bit for bit: the split over CTAs changes no
+    addition."""
+    x = mixed(np.random.default_rng(n + ctas), n)
+    want = tseg.sum_ordered_plain(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(bits(_cluster_sum_model(x, ctas)),
+                                  bits(want))
