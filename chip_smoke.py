@@ -284,7 +284,47 @@
    - e2e-batched (sequential_threshold 512: C = 1,024 through
      match_rounds) at bench_e2e's 100k x 10k, BENCH_BATCHED_CYCLES
      cycles: exact_scan once a cycle at least.
-13. Prints timings as JSON: per cycle CUDA events from the delta upload
+13. The runtime around the server, each leg on the card through
+   exact_scan, each failing the run on any miss or past its deadline:
+   - agents: the server (`build_scheduler` in this process on the card,
+     one cluster of kind "agent" with a token, max_jobs_considered
+     1,024, the default pipeline and status shards, a durable log,
+     served by an ApiServer) and 64 agents of 32 cpus and 131,072 MB
+     registered one by one in a fixed order: 4 `python -m
+     cook_tpu_torch.agent` processes, then 60 in-process AgentDaemons.
+     2,000 `true` jobs (1 cpu, 64 MB) of 20 users are POSTed through
+     JobClient in bulk and AGENTS_AGREE cycles driven by hand, clocks
+     and uuids pinned, each waiting until its tasks ended (the first
+     under the profiler: launches, device busy and idle share; the
+     second under the sync debug mode: host syncs): the same run on the
+     port's CPU path must launch the same {job: hostname} pairs. Then
+     64 jobs of `sleep 3` (31 cpus each: one an agent, the subprocess
+     agents too), one of `exit 3`, and 3 submitted by a `python -m
+     cook_tpu_torch.cli submit --raw` subprocess; the cycle threads
+     start as `main` starts them; once every sleeper has launched and
+     one runs on a subprocess agent, the subprocess agent running the
+     most is SIGKILLed. Every job must end
+     as expected: `exit 3` failed with exit code 3 (reason 1003), the
+     killed agent's tasks failed mea culpa (5000) and succeeded on
+     another agent, every other job a success; exact_scan once a
+     placing cycle at least. Prints the hand-driven and threaded cycle
+     ms (p50 / p99), jobs/s from the first POST to the last terminal
+     state, the seconds from the kill to the lost tasks and to their
+     launches elsewhere, launches and syncs a cycle, the idle share.
+   - kube: the server with one cluster of kind "kube" whose kube_url is
+     the port's ApiServerStandIn over 256 nodes (8 cpus, 32 GB),
+     KubeletSim binding, starting and finishing the pods (1 s): 2,000
+     jobs POSTed through JobClient must all succeed, exact_scan launch.
+   - failover: two servers on the card (`python -m
+     cook_tpu_torch.rest.server --device cuda`, run through runpy by a
+     wrapper that prints its launch counters on SIGTERM) race for a
+     Lease on the port's stand-in and share one durable log; one agent
+     process (8 cpus) carries both URLs. 24 `sleep 1` jobs go to the
+     leader; once 8 run it is SIGKILLed; the standby must take the
+     lease, replay the log, rebuild its resident pool and run every job
+     to success, launching exact_scan. Prints the milliseconds from the
+     kill to the survivor's first launch.
+14. Prints timings as JSON: per cycle CUDA events from the delta upload
    to the prefix readback, and the host clock around the whole cycle
    (including the workload's own bookkeeping); each kernel alone by CUDA
    events, exact_scan also at its dependency floor (S=1024 with one warp
@@ -426,6 +466,26 @@ BENCH_SMOKE_CYCLES, BENCH_SMOKE_WARMUP = 30, 10
 BENCH_SMOKE_AGREE = 13
 BENCH_BATCHED = dict(P0=100_000, H=10_000, U=500)
 BENCH_BATCHED_CYCLES, BENCH_BATCHED_WARMUP = 30, 5
+# phase 13: the fleet of agents (subprocesses, in-process daemons), each
+# AGENT_CPUS x AGENT_MEM; the backlog of `true` jobs from AGENTS_USERS,
+# the sleepers (one subprocess agent is killed under them), the jobs the
+# cs CLI submits; the hand-driven cycles held against the CPU path; the
+# agents' lease (heartbeat timeout) and heartbeat; each leg's deadline
+AGENT_TOKEN = "chip-smoke"
+AGENTS_SUB, AGENTS_INPROC = 4, 60
+AGENT_CPUS, AGENT_MEM = 32.0, 131_072.0
+AGENTS_C = 1_024
+AGENTS_JOBS, AGENTS_USERS = 2_000, 20
+AGENTS_SLEEPERS, AGENTS_SLEEP_S = 64, 3
+AGENTS_CLI_JOBS = 3
+AGENTS_AGREE = 2
+AGENTS_LEASE_S, AGENTS_HEARTBEAT_S = 5.0, 0.5
+AGENTS_MAX_S = 240
+# the kube leg: the stand-in's nodes (8 cpus, 32 GB each: 2,048 1-cpu
+# slots), its jobs, KubeletSim's pod runtime
+KUBE_NODES, KUBE_JOBS, KUBE_RUNTIME_S, KUBE_MAX_S = 256, 2_000, 1.0, 180
+# the failover leg: the jobs (sleep 1, 1 cpu) on one agent of 8 cpus
+FAILOVER_JOBS, FAILOVER_AGENT_CPUS, FAILOVER_MAX_S = 24, 8.0, 240
 
 
 T_START = time.perf_counter()
@@ -2862,8 +2922,650 @@ def bench_phase(dev):
     return out, launches
 
 
-def main():
+# ---- 13. agents, kube and failover ----------------------------------------
+def _wait(cond, max_s, what, poll=0.02, report=None):
+    """Poll `cond()` until true, then print the seconds it took; fail
+    after `max_s` seconds, with `report()` when given."""
+    t0 = time.perf_counter()
+    while True:
+        v = cond()
+        if v:
+            print(json.dumps({"waited": what,
+                              "s": time.perf_counter() - t0}), flush=True)
+            return v
+        if time.perf_counter() - t0 > max_s:
+            fail(f"{what}: not within {max_s} s"
+                 + (f"; {report()}" if report else ""))
+        time.sleep(poll)
+
+
+def _agents_report(cluster, store, uuids):
+    """Where `uuids` stand, and each agent's liveness and tracked use."""
+    states = {}
+    for u in uuids:
+        key = tuple((i.hostname, i.status.name, i.reason_code)
+                    for i in store.get_job(u).instances)[-1:]
+        states[str(key)] = states.get(str(key), 0) + 1
+    agents = {h: (a.alive, cluster._used.get(h, [0, 0])[1], a.cpus)
+              for h, a in list(cluster.agents.items())}
+    busy = {h: v for h, v in agents.items() if not v[0] or v[1]}
+    return json.dumps({"jobs_by_last_instance": states,
+                       "agents_dead_or_used": busy,
+                       "liveness": cluster.liveness.counts()
+                       if cluster.liveness else None})
+
+
+def _child_env(here):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("PYTHONSTARTUP", None)
+    return env
+
+
+def _log_tail(path, n=2000):
+    try:
+        with open(path, "rb") as f:
+            return f.read()[-n:].decode(errors="replace")
+    except OSError:
+        return ""
+
+
+class AgentFleet:
+    """`n_sub` `python -m cook_tpu_torch.agent` processes, then `n_in`
+    in-process AgentDaemons, registered with `url` one by one in that
+    order (each waits until `cluster` knows it), every agent AGENT_CPUS
+    x AGENT_MEM."""
+
+    def __init__(self, url, cluster, tmp, n_sub, n_in):
+        from cook_tpu_torch.agent.daemon import AgentDaemon
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.procs, self.daemons, self.tmp = {}, [], tmp
+        self.hostnames = [f"sub-{k}" for k in range(n_sub)] + \
+            [f"agent-{k:02d}" for k in range(n_in)]
+        try:
+            for h in self.hostnames[:n_sub]:
+                log = open(os.path.join(tmp, f"{h}.log"), "wb")
+                self.procs[h] = proc = subprocess.Popen(
+                    [sys.executable, "-m", "cook_tpu_torch.agent",
+                     "--coordinator", url, "--hostname", h,
+                     "--mem", str(AGENT_MEM), "--cpus", str(AGENT_CPUS),
+                     "--sandbox-root", os.path.join(tmp, h),
+                     "--heartbeat-interval", str(AGENTS_HEARTBEAT_S),
+                     "--agent-token", AGENT_TOKEN],
+                    cwd=tmp, env=_child_env(here), stdout=log,
+                    stderr=subprocess.STDOUT)
+                log.close()
+
+                def registered(h=h, proc=proc):
+                    if proc.poll() is not None:
+                        fail(f"agent {h} exited {proc.returncode}: "
+                             + self.log(h))
+                    return h in cluster.agents
+                _wait(registered, 60, f"agent {h} registers")
+            for h in self.hostnames[n_sub:]:
+                # start() returns once registered
+                self.daemons.append(AgentDaemon(
+                    url, hostname=h, mem=AGENT_MEM, cpus=AGENT_CPUS,
+                    sandbox_root=os.path.join(tmp, h),
+                    heartbeat_interval_s=AGENTS_HEARTBEAT_S,
+                    agent_token=AGENT_TOKEN).start())
+        except BaseException:
+            self.stop()
+            raise
+        if list(cluster.agents) != self.hostnames:
+            fail("agents: registered out of order")
+
+    def log(self, h):
+        return _log_tail(os.path.join(self.tmp, f"{h}.log"))
+
+    def stop(self):
+        # together: each daemon's stop waits out its HTTP server's poll
+        # (0.5 s), 30 s for 60 daemons one by one
+        from concurrent.futures import ThreadPoolExecutor
+        if self.daemons:
+            with ThreadPoolExecutor(len(self.daemons)) as ex:
+                list(ex.map(lambda d: d.stop(), self.daemons))
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.terminate()
+        for proc in self.procs.values():
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+def agents_config(tmp, consider):
+    """The agent leg's server: one cluster of kind "agent" with a token,
+    the default pool and the server's defaults (resident match, its
+    pipeline and status shards), a durable log, no overload ladder."""
+    return {"clusters": [{"kind": "agent", "name": "agents",
+                          "agent_heartbeat_timeout_s": AGENTS_LEASE_S}],
+            "auth": {"scheme": "header", "agent_token": AGENT_TOKEN},
+            "log_path": os.path.join(tmp, "events.log"),
+            "scheduler": {"max_jobs_considered": consider,
+                          "match_interval_s": SERVER_INTERVAL_S,
+                          "overload_enabled": False}}
+
+
+def _job_specs(n, first, command, users, **kw):
+    """{user: [spec]}: n jobs (1 cpu, 64 MB unless `kw` says) of
+    `command`, uuids from `first`, dealt to `users` users in turn."""
+    import uuid
+    out = {}
+    for i in range(n):
+        out.setdefault(f"u{i % users}", []).append(
+            {"uuid": str(uuid.UUID(int=(3 << 64) + first + i)),
+             "command": command, "mem": 64.0, "cpus": 1.0, **kw})
+    return out
+
+
+def _terminal(store, uuids):
+    """True once every job of `uuids` is completed."""
+    return all(store.get_job(u).state.name == "COMPLETED" for u in uuids)
+
+
+def _tasks_done(store, uuids):
+    """True once no instance of `uuids` is still staged or running."""
+    return all(i.status.name in ("SUCCESS", "FAILED")
+               for u in uuids for i in store.get_job(u).instances)
+
+
+def agents_run(device, full, n_sub=AGENTS_SUB, n_in=AGENTS_INPROC,
+               jobs=AGENTS_JOBS, consider=AGENTS_C):
+    """The agent leg on `device`. The fleet registers in a fixed order,
+    the backlog of `true` jobs is POSTed through JobClient in bulk, and
+    AGENTS_AGREE cycles are driven by hand with clocks and uuids pinned,
+    each waiting until its tasks ended (on the card the first under the
+    profiler, the second under the sync debug mode). Returns their
+    launches, {job uuid: hostname} a cycle; with `full`, the rest of the
+    run's numbers (see the module docstring, phase 13) too."""
+    import shutil
+    import tempfile
     import torch
+    from cook_tpu_torch import e2e, obs
+    from cook_tpu_torch.client import JobClient
+    from cook_tpu_torch.ops import fused_match as fm
+    from cook_tpu_torch.profile_cycle import profile_calls, sync_sources
+    from cook_tpu_torch.rest.server import (ApiServer, apply_gc_discipline,
+                                            build_scheduler)
+    here = os.path.dirname(os.path.abspath(__file__))
+    on_card = torch.device(device).type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="cook_smoke_agents_")
+    stats, per = {}, []
+    pin = e2e.pinned_clocks()
+    pin.__enter__()
+    pinned, stopped = True, False
+    fleet = server = None
+    store, coord, api = build_scheduler(agents_config(tmp, consider),
+                                        device=device)
+    try:
+        server = ApiServer(api).start()
+        (cluster,) = coord.clusters.all()
+        t0 = time.perf_counter()
+        fleet = AgentFleet(server.url, cluster, tmp, n_sub, n_in)
+        stats["fleet_register_s"] = time.perf_counter() - t0
+        launched = {}
+        launch = cluster.launch_tasks
+
+        def record(pool, specs):
+            for s in specs:
+                launched[s.job_uuid] = s.hostname
+            return launch(pool, specs)
+
+        cluster.launch_tasks = record
+        backlog = _job_specs(jobs, 0, "true", AGENTS_USERS)
+        uuids = [s["uuid"] for u in sorted(backlog) for s in backlog[u]]
+        t_first_post = time.perf_counter()
+        for user in sorted(backlog):
+            JobClient(server.url, user=user).submit_jobs_bulk(backlog[user])
+        if on_card:
+            fm.reset_launches()
+
+        def one():
+            coord.match_cycle("default")
+            coord.drain_resident("default")
+
+        hand_ms = []
+        for c in range(AGENTS_AGREE):
+            launched.clear()
+            t = time.perf_counter()
+            if on_card and c == 0:
+                _, kernels, _, wall = profile_calls(one, 1)
+                busy = sum(k[1] for k in kernels)
+                stats["launches_per_cycle"] = sum(k[2] for k in kernels)
+                stats["device_busy_ms_per_cycle"] = busy
+                stats["device_idle_share"] = 1.0 - busy / wall
+            elif on_card:
+                sources = sync_sources(one)
+                stats["host_syncs_per_cycle"] = sum(sources.values())
+                stats["host_sync_sources"] = sources
+            else:
+                one()
+            hand_ms.append((time.perf_counter() - t) * 1e3)
+            per.append(dict(launched))
+            print(json.dumps({"agents_hand_cycle": c, "device": str(device),
+                              "ms": hand_ms[-1],
+                              "launched": len(launched)}), flush=True)
+            _wait(lambda: _tasks_done(store, uuids), 120,
+                  f"agents on {device}: cycle {c}'s tasks end",
+                  report=lambda: _agents_report(cluster, store, uuids))
+        pin.__exit__(None, None, None)
+        pinned = False
+        if not full:
+            return per, stats
+        stats["hand_cycle_ms"] = hand_ms
+        if sum(len(p) for p in per) != jobs:
+            fail(f"agents: the {AGENTS_AGREE} hand-driven cycles launched "
+                 f"{[len(p) for p in per]} of {jobs}")
+
+        # the sleepers, the cs CLI's jobs, one job that exits 3. A
+        # sleeper takes all but one cpu of an agent, so each agent runs
+        # one (the subprocess agents too) and the small jobs fit beside
+        sleepers = _job_specs(AGENTS_SLEEPERS, jobs,
+                              f"sleep {AGENTS_SLEEP_S}", 4, max_retries=2,
+                              cpus=AGENT_CPUS - 1)
+        sleep_uuids = [s["uuid"] for u in sorted(sleepers)
+                       for s in sleepers[u]]
+        for user in sorted(sleepers):
+            JobClient(server.url, user=user).submit_jobs_bulk(
+                sleepers[user])
+        (bad,) = _job_specs(1, jobs + AGENTS_SLEEPERS, "exit 3", 1,
+                            max_retries=1)["u0"]
+        JobClient(server.url, user="u0").submit_jobs([bad])
+        cs_cfg = os.path.join(tmp, "cs.json")
+        with open(cs_cfg, "w") as f:
+            json.dump({}, f)
+        raw = os.path.join(tmp, "cli_jobs.json")
+        with open(raw, "w") as f:
+            json.dump([{"command": f"echo cli-{k}"}
+                       for k in range(AGENTS_CLI_JOBS)], f)
+        cli = subprocess.run(
+            [sys.executable, "-m", "cook_tpu_torch.cli", "--config",
+             cs_cfg, "--url", server.url, "--user", "cli", "submit",
+             "--mem", "64", "--raw", raw], cwd=tmp, env=_child_env(here),
+            capture_output=True, text=True, timeout=120)
+        cli_uuids = cli.stdout.split()
+        if cli.returncode != 0 or len(cli_uuids) != AGENTS_CLI_JOBS:
+            fail(f"cs submit exited {cli.returncode}: {cli.stdout[-500:]} "
+                 f"{cli.stderr[-1000:]}")
+        everything = uuids + sleep_uuids + [bad["uuid"]] + cli_uuids
+
+        entries = []
+        obs.profiler.add_listener(entries.append)
+        apply_gc_discipline()
+        start_cycles(coord)
+
+        def sleepers_on_subprocess_agents():
+            # every sleeper launched, and {subprocess agent: [sleepers
+            # running there]} once one runs any (an in-process agent
+            # the server's GIL starved past its lease fails its
+            # sleeper mea culpa, which then waits for a free agent)
+            if not all(store.get_job(u).instances for u in sleep_uuids):
+                return None
+            on = {}
+            for u in sleep_uuids:
+                i = store.get_job(u).instances[-1]
+                if i.status.name == "RUNNING" and i.hostname in fleet.procs:
+                    on.setdefault(i.hostname, []).append(u)
+            return on
+        on_host = _wait(sleepers_on_subprocess_agents, 60,
+                        "agents: the sleepers run",
+                        report=lambda: _agents_report(cluster, store,
+                                                      sleep_uuids))
+        # the subprocess agent running the most sleepers dies
+        victim = max(on_host, key=lambda h: len(on_host[h]))
+        victims = on_host[victim]
+        n0 = {u: len(store.get_job(u).instances) for u in victims}
+        t_kill = time.perf_counter()
+        fleet.procs[victim].kill()
+        fleet.procs[victim].wait(timeout=10)
+        _wait(lambda: all(store.get_job(u).instances[n0[u] - 1].status.name
+                          == "FAILED" for u in victims), 60,
+              "agents: the killed agent's tasks fail")
+        kill_to_lost_s = time.perf_counter() - t_kill
+        _wait(lambda: all(len(store.get_job(u).instances) > n0[u]
+                          for u in victims), 60,
+              "agents: the killed agent's tasks launch again")
+        kill_to_retry_s = time.perf_counter() - t_kill
+        _wait(lambda: _terminal(store, everything), AGENTS_MAX_S,
+              "agents: every job completes",
+              report=lambda: _agents_report(cluster, store, everything))
+        t_done = time.perf_counter()
+        # once: a second stop would wait on a cycle its first left in
+        # flight, with no consumer left to take it
+        coord.stop()
+        stopped = True
+        obs.profiler.remove_listener(entries.append)
+        launches = dict(fm.LAUNCHES)
+
+        # every job in its expected state
+        for u in uuids + cli_uuids:
+            j = store.get_job(u)
+            if not j.success or j.instances[-1].status.name != "SUCCESS":
+                ins = [(i.status.name, i.reason_code) for i in j.instances]
+                fail(f"agents: job {u} ended {j.state.name} {ins}")
+        for u in sleep_uuids:
+            j = store.get_job(u)
+            ins = [(i.hostname, i.status.name, i.reason_code)
+                   for i in j.instances]
+            if not j.success or (u in victims and (
+                    ins[n0[u] - 1] != (victim, "FAILED", 5000)
+                    or ins[-1][0] == victim)):
+                fail(f"agents: sleeper {u} ended {j.state.name} {ins}")
+        j = store.get_job(bad["uuid"])
+        ins = [(i.status.name, i.exit_code, i.reason_code)
+               for i in j.instances]
+        if j.success or [x for x in ins if x[2] != 5000] != [
+                ("FAILED", 3, 1003)]:
+            fail(f"agents: the exit-3 job ended {ins}")
+
+        matches = [e for e in entries if e["kind"] == "match"]
+        placing = [e["wall_ms"] for e in entries if e["kind"] == "consume"
+                   and e.get("attrs", {}).get("matched")]
+        cycles = AGENTS_AGREE + len(matches)
+        if launches["exact_scan"] < AGENTS_AGREE + len(placing):
+            fail(f"agents: exact_scan launched {launches['exact_scan']} "
+                 f"times for {AGENTS_AGREE + len(placing)} placing cycles")
+        stats.update({
+            "agents": len(fleet.hostnames), "subprocess_agents": n_sub,
+            "C": consider, "jobs": len(everything),
+            "jobs_per_s": len(everything) / (t_done - t_first_post),
+            "first_post_to_last_terminal_s": t_done - t_first_post,
+            "cycles": cycles,
+            "cycle_ms": _pct([e["wall_ms"] for e in matches]),
+            "placing_consume_ms": _pct(placing),
+            "killed": victim, "killed_tasks": len(victims),
+            "kill_to_tasks_lost_s": kill_to_lost_s,
+            "kill_to_retried_launches_s": kill_to_retry_s,
+            "exact_scan_launches": launches["exact_scan"],
+            "kernel_launches": {k: v for k, v in launches.items() if v}})
+        return per, stats, launches
+    finally:
+        if pinned:
+            pin.__exit__(None, None, None)
+        if fleet is not None:
+            fleet.stop()
+        if server is not None:
+            server.stop()
+        if api.ingest is not None:
+            api.ingest.stop()
+        if not stopped:
+            coord.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def kube_leg(dev, nodes=KUBE_NODES, jobs=KUBE_JOBS):
+    """The server with one cluster of kind "kube" whose kube_url is the
+    port's ApiServerStandIn over `nodes` nodes, KubeletSim binding,
+    starting and finishing the pods: every job must succeed, exact_scan
+    launch. Returns (stats, launches)."""
+    import shutil
+    import tempfile
+    from cook_tpu_torch import obs
+    from cook_tpu_torch.backends.kube import FakeKube, Node
+    from cook_tpu_torch.backends.kube.standin import (ApiServerStandIn,
+                                                      KubeletSim)
+    from cook_tpu_torch.client import JobClient
+    from cook_tpu_torch.ops import fused_match as fm
+    from cook_tpu_torch.rest.server import ApiServer, build_scheduler
+    tmp = tempfile.mkdtemp(prefix="cook_smoke_kube_")
+    standin = ApiServerStandIn(FakeKube([
+        Node(f"node{i}", mem=32_768.0, cpus=8.0) for i in range(nodes)]))
+    sim = KubeletSim(standin.fake, interval_s=0.1,
+                     runtime_s=KUBE_RUNTIME_S).start()
+    store, coord, api = build_scheduler({
+        "clusters": [{"kind": "kube", "name": "kube",
+                      "kube_url": standin.url}],
+        "auth": {"scheme": "header"},
+        "log_path": os.path.join(tmp, "events.log"),
+        "scheduler": {"max_jobs_considered": AGENTS_C,
+                      "match_interval_s": SERVER_INTERVAL_S,
+                      "overload_enabled": False}}, device=dev)
+    server = ApiServer(api).start()
+    entries = []
+    stopped = False
+    try:
+        backlog = _job_specs(jobs, 1 << 20, "true", AGENTS_USERS)
+        uuids = [s["uuid"] for u in sorted(backlog) for s in backlog[u]]
+        t0 = time.perf_counter()
+        for user in sorted(backlog):
+            JobClient(server.url, user=user).submit_jobs_bulk(backlog[user])
+        obs.profiler.add_listener(entries.append)
+        fm.reset_launches()
+        start_cycles(coord)
+        _wait(lambda: _terminal(store, uuids), KUBE_MAX_S,
+              "kube: every job completes")
+        dt = time.perf_counter() - t0
+        coord.stop()
+        stopped = True
+        obs.profiler.remove_listener(entries.append)
+        launches = dict(fm.LAUNCHES)
+        failed = [store.get_job(u) for u in uuids
+                  if not store.get_job(u).success]
+        if failed:
+            ins = [(i.status.name, i.reason_code)
+                   for i in failed[0].instances]
+            fail(f"kube: {len(failed)} jobs failed, e.g. {ins}")
+        if not launches["exact_scan"]:
+            fail("kube: exact_scan never launched")
+        matches = [e for e in entries if e["kind"] == "match"]
+        return {"nodes": nodes, "jobs": jobs, "C": AGENTS_C,
+                "pod_runtime_s": KUBE_RUNTIME_S,
+                "first_post_to_last_success_s": dt,
+                "jobs_per_s": jobs / dt, "cycles": len(matches),
+                "cycle_ms": _pct([e["wall_ms"] for e in matches]),
+                "pods_listed": standin.list_counts,
+                "exact_scan_launches": launches["exact_scan"],
+                "kernel_launches": {k: v for k, v in launches.items()
+                                    if v}}, launches
+    finally:
+        server.stop()
+        if api.ingest is not None:
+            api.ingest.stop()
+        if not stopped:
+            coord.stop()
+        sim.stop()
+        cluster = next(iter(coord.clusters.all()))
+        cluster.api.stop()
+        standin.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# `python -m cook_tpu_torch.rest.server` with its arguments, which on
+# SIGTERM prints its kernels' launch counters and exits
+_COUNTED_SERVER = r"""
+import json, os, runpy, signal, sys
+def report(*_):
+    from cook_tpu_torch.ops import fused_match as fm
+    print("LAUNCHES " + json.dumps(fm.LAUNCHES), flush=True)
+    os._exit(0)
+signal.signal(signal.SIGTERM, report)
+sys.argv = ["cook_tpu_torch.rest.server"] + sys.argv[1:]
+runpy.run_module("cook_tpu_torch.rest.server", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+def failover_leg(dev_name="cuda"):
+    """Two servers on the card race for a Lease on the port's stand-in
+    and share one durable log; one agent carries both URLs. The leader
+    is SIGKILLed with jobs running and waiting: the standby takes the
+    lease, replays the log, rebuilds its resident pool and places the
+    rest. Returns (stats, the survivor's launches)."""
+    import shutil
+    import signal
+    import tempfile
+    import urllib.request
+    from cook_tpu_torch.backends.kube.standin import ApiServerStandIn
+    from cook_tpu_torch.client import JobClient
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="cook_smoke_failover_")
+    lease = ApiServerStandIn()
+    ports = [_free_port(), _free_port()]
+    urls = [f"http://127.0.0.1:{p}" for p in ports]
+    procs, logs = [], []
+
+    def info(url):
+        try:
+            with urllib.request.urlopen(url + "/info", timeout=2) as r:
+                return json.loads(r.read())
+        except (OSError, ValueError):
+            return None
+
+    def spawn(k):
+        cfg = os.path.join(tmp, f"server{k}.json")
+        with open(cfg, "w") as f:
+            json.dump({
+                "port": ports[k], "url": urls[k],
+                "clusters": [{"kind": "agent", "name": "agents",
+                              "agent_heartbeat_timeout_s": AGENTS_LEASE_S}],
+                "auth": {"scheme": "header", "agent_token": AGENT_TOKEN},
+                "leader_lease_url": lease.url,
+                "leader_lease_duration_s": 2.0,
+                "log_path": os.path.join(tmp, "shared-eventlog"),
+                "scheduler": {"max_jobs_considered": AGENTS_C,
+                              "match_interval_s": SERVER_INTERVAL_S}}, f)
+        logs.append(os.path.join(tmp, f"server{k}.log"))
+        out = open(logs[-1], "wb")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _COUNTED_SERVER, "--device", dev_name,
+             "--config", cfg], cwd=tmp, env=_child_env(here), stdout=out,
+            stderr=subprocess.STDOUT))
+        out.close()
+
+    def up(k, leader):
+        def ok():
+            if procs[k].poll() is not None:
+                fail(f"failover: server {k} exited {procs[k].returncode}: "
+                     + _log_tail(logs[k]))
+            i = info(urls[k])
+            return i is not None and (not leader or i.get("is-leader"))
+        return ok
+
+    def one_leader():
+        # both answer, and the lease made exactly one of them leader
+        if not (up(0, False)() and up(1, False)()):
+            return None
+        lead = [k for k in (0, 1)
+                if (info(urls[k]) or {}).get("is-leader")]
+        return lead if len(lead) == 1 else None
+
+    try:
+        t0 = time.perf_counter()
+        spawn(0)
+        spawn(1)
+        (lead,) = _wait(one_leader, SERVER_BOOT_S,
+                        "failover: both servers up, one leader", poll=0.1)
+        standby = 1 - lead
+        boot_s = time.perf_counter() - t0
+        agent_log = os.path.join(tmp, "agent.log")
+        out = open(agent_log, "wb")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "cook_tpu_torch.agent", "--coordinator",
+             ",".join(urls), "--hostname", "ha-agent", "--mem",
+             str(AGENT_MEM), "--cpus", str(FAILOVER_AGENT_CPUS),
+             "--sandbox-root", os.path.join(tmp, "sandboxes"),
+             "--heartbeat-interval", str(AGENTS_HEARTBEAT_S),
+             "--agent-token", AGENT_TOKEN], cwd=tmp, env=_child_env(here),
+            stdout=out, stderr=subprocess.STDOUT))
+        out.close()
+        client = JobClient(urls[lead], user="u0")
+        backlog = _job_specs(FAILOVER_JOBS, 1 << 21, "sleep 1", 1)["u0"]
+        uuids = client.submit_jobs_bulk(backlog)
+
+        def started():
+            jobs = client.query_jobs(uuids)
+            return sum(j.status == "running" for j in jobs) \
+                >= FAILOVER_AGENT_CPUS
+        _wait(started, 60, "failover: the first jobs run", poll=0.1)
+        kill_ms = time.time() * 1e3
+        t_kill = time.perf_counter()
+        procs[lead].send_signal(signal.SIGKILL)
+        procs[lead].wait(timeout=10)
+        _wait(up(standby, True), 60, "failover: the standby takes over",
+              poll=0.05)
+        takeover_s = time.perf_counter() - t_kill
+        survivor = JobClient(urls[standby], user="u0")
+
+        def done():
+            try:
+                jobs = survivor.query_jobs(uuids)
+            except Exception:
+                return None
+            return jobs if all(j.status == "completed" for j in jobs) \
+                else None
+        jobs = _wait(done, FAILOVER_MAX_S, "failover: every job completes",
+                     poll=0.2)
+        bad = [(j.uuid, j.state) for j in jobs if j.state != "success"]
+        if bad:
+            fail(f"failover: jobs ended {bad[:3]}")
+        after = [i.start_time for j in jobs for i in j.instances
+                 if i.start_time and i.start_time >= kill_ms]
+        if not after:
+            fail("failover: the survivor launched nothing")
+        procs[standby].send_signal(signal.SIGTERM)
+        procs[standby].wait(timeout=60)
+        counted = [ln for ln in _log_tail(logs[standby], 1 << 20).splitlines()
+                   if ln.startswith("LAUNCHES ")]
+        if not counted:
+            fail("failover: the survivor printed no launch counts: "
+                 + _log_tail(logs[standby]))
+        launches = json.loads(counted[-1][len("LAUNCHES "):])
+        if not launches["exact_scan"]:
+            fail("failover: the survivor never launched exact_scan")
+        return {"jobs": FAILOVER_JOBS, "agent_cpus": FAILOVER_AGENT_CPUS,
+                "boot_s": boot_s, "kill_to_takeover_s": takeover_s,
+                "kill_to_first_launch_ms": min(after) - kill_ms,
+                "instances": sum(len(j.instances) for j in jobs),
+                "survivor_exact_scan_launches": launches["exact_scan"],
+                "survivor_kernel_launches": {k: v for k, v in
+                                             launches.items() if v}
+                }, launches
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        lease.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def agents_phase(dev):
+    """13: the agent, kube and failover legs (see the module
+    docstring). Returns (stats, launches by leg)."""
+    t0 = time.perf_counter()
+    want, _ = agents_run("cpu", full=False)
+    got, stats, agent_launches = agents_run(dev, full=True)
+    for c, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            diff = sorted(u for u in set(g) | set(w) if g.get(u) != w.get(u))
+            fail(f"agents agreement cycle {c}: {len(diff)} jobs differ, "
+                 f"e.g. {diff[0]}: card {g.get(diff[0])} CPU path "
+                 f"{w.get(diff[0])}")
+    stats["agreement"] = {"cycles": AGENTS_AGREE,
+                          "launched_per_cycle": [len(g) for g in got]}
+    stats["leg_s"] = time.perf_counter() - t0
+    print(json.dumps({"agents": stats}), flush=True)
+    t0 = time.perf_counter()
+    kube, kube_launches = kube_leg(dev)
+    kube["leg_s"] = time.perf_counter() - t0
+    print(json.dumps({"kube": kube}), flush=True)
+    t0 = time.perf_counter()
+    fo, fo_launches = failover_leg()
+    fo["leg_s"] = time.perf_counter() - t0
+    print(json.dumps({"failover": fo}), flush=True)
+    return ({"agents": stats, "kube": kube, "failover": fo},
+            {"agents": agent_launches, "kube": kube_launches,
+             "failover": fo_launches})
+
+
+def main():
+    import faulthandler
+    import torch
+    # a native abort prints every thread's Python stack
+    faulthandler.enable(all_threads=True)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3337,6 +4039,9 @@ def main():
     # ---- 12. bench.py's remaining entry points (bench_torch.py) ---------
     bench_out, bench_launches = bench_phase(dev)
     mark("bench")
+    # ---- 13. agents, kube over HTTP, leader failover ---------------------
+    agents_out, agents_launches = agents_phase(dev)
+    mark("agents")
 
     def cycle_stats(phase, host, match):
         return {
@@ -3402,6 +4107,7 @@ def main():
         "operator": operator_out,
         "parallel": parallel_out,
         "bench": bench_out,
+        "agents": agents_out,
         "group_routes": gr,
         "group_cells": group_out,
         "rebalance_usage": usage,
@@ -3426,6 +4132,8 @@ def main():
                    "sharded": par_launches["sharded"][k],
                    **{f"bench_{m}": bench_launches[m][k]
                       for m in bench_launches},
+                   **{leg: agents_launches[leg].get(k, 0)
+                      for leg in agents_launches},
                    **{cell: group_launches[cell][k]
                       for cell in group_launches}}
                for k in seq_launches}

@@ -72,9 +72,10 @@ char* cf_status_lines(int64_t n,
         total += exits[i] == kNullSentinel
                ? sizeof(kNull) - 1 : int_width(exits[i], numbuf);
     }
-    // +1: snprintf NUL-terminates each number in place; the terminator
-    // is overwritten by the next field's memcpy except possibly after
-    // the very last field when tail is empty
+    // each number is formatted into numbuf and copied: snprintf in
+    // place could be told 24 bytes where fewer remain, which glibc's
+    // _FORTIFY_SOURCE=3 checks (and aborts on) against the allocation
+    // (+1: never a zero-byte allocation)
     char* out = (char*)malloc(total + 1);
     if (out == nullptr) return nullptr;
     char* p = out;
@@ -85,7 +86,8 @@ char* cf_status_lines(int64_t n,
         if (reasons[i] == kNullSentinel) {
             memcpy(p, kNull, sizeof(kNull) - 1);    p += sizeof(kNull) - 1;
         } else {
-            p += int_width(reasons[i], p);
+            size_t w = int_width(reasons[i], numbuf);
+            memcpy(p, numbuf, w);                   p += w;
         }
         if (preempted[i]) {
             memcpy(p, kPTrue, sizeof(kPTrue) - 1);  p += sizeof(kPTrue) - 1;
@@ -95,7 +97,8 @@ char* cf_status_lines(int64_t n,
         if (exits[i] == kNullSentinel) {
             memcpy(p, kNull, sizeof(kNull) - 1);    p += sizeof(kNull) - 1;
         } else {
-            p += int_width(exits[i], p);
+            size_t w = int_width(exits[i], numbuf);
+            memcpy(p, numbuf, w);                   p += w;
         }
         memcpy(p, tail, (size_t)tail_len);          p += tail_len;
     }

@@ -666,6 +666,12 @@ def main(argv=None) -> None:
         # re-replay the shared snapshot+log: the previous leader kept
         # appending after this standby's boot-time restore
         store.reload_from(settings.snapshot_path)
+        # the replay swaps the store's contents without events, so each
+        # resident pool still mirrors the boot-time store: rebuild them
+        # all from the replayed one at their next cycle (else the jobs
+        # the old leader left waiting wait for the periodic resync)
+        for rp in getattr(coord, "_resident", {}).values():
+            rp.request_resync()
         # durable epoch fence: MINT a monotone fencing epoch in the
         # <log>.epoch ledger before any post-takeover write. Every log
         # entry is stamped with it ("ep"), replay drops older-epoch

@@ -38,6 +38,11 @@ backends/kube/cluster.py backends/kube/controller.py
 backends/kube/http_api.py
 agent/__init__.py agent/executor.py agent/file_server.py
 sim/gen.py sim/analysis.py
+utils/retry.py client/__init__.py agent/daemon.py agent/__main__.py
+backends/kube/standin.py cli/metrics.py cli/plugins.py cli/__init__.py
+cli/__main__.py native/jobclient.py native/jobclient.cpp
+integrations/__init__.py integrations/dask_cook.py
+integrations/spark_cook.py
 """.split()
 
 # (original hunk, port hunk) pairs, each applied once to the rewritten
@@ -77,6 +82,46 @@ _OUT = os.path.join(os.path.dirname(_DIR), "_build", "native")
          """            os.makedirs(_OUT, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
 """),
+    ],
+    # numbers are formatted into a scratch buffer and copied: the
+    # original's snprintf(p, 24, ...) into the output, where fewer bytes
+    # may remain, aborts under glibc's _FORTIFY_SOURCE=3 (the default of
+    # some toolchains) once a task reports an exit code
+    "native/consume.cpp": [
+        ("""    // +1: snprintf NUL-terminates each number in place; the terminator
+    // is overwritten by the next field's memcpy except possibly after
+    // the very last field when tail is empty
+""",
+         """    // each number is formatted into numbuf and copied: snprintf in
+    // place could be told 24 bytes where fewer remain, which glibc's
+    // _FORTIFY_SOURCE=3 checks (and aborts on) against the allocation
+    // (+1: never a zero-byte allocation)
+"""),
+        ("""            p += int_width(reasons[i], p);
+""",
+         """            size_t w = int_width(reasons[i], numbuf);
+            memcpy(p, numbuf, w);                   p += w;
+"""),
+        ("""            p += int_width(exits[i], p);
+""",
+         """            size_t w = int_width(exits[i], numbuf);
+            memcpy(p, numbuf, w);                   p += w;
+"""),
+    ],
+    # the entry points users type, and read in usage strings
+    "agent/daemon.py": [
+        ("Entry point:  python -m cook_tpu.agent --coordinator",
+         "Entry point:  python -m cook_tpu_torch.agent --coordinator"),
+        ('        prog="cook_tpu.agent",',
+         '        prog="cook_tpu_torch.agent",'),
+    ],
+    "cli/__init__.py": [
+        ("Entry point: `python -m cook_tpu.cli <subcommand> ...`.",
+         "Entry point: `python -m cook_tpu_torch.cli <subcommand> ...`."),
+    ],
+    "backends/kube/standin.py": [
+        ('    """`python -m cook_tpu.backends.kube.standin --port 12380',
+         '    """`python -m cook_tpu_torch.backends.kube.standin --port 12380'),
     ],
 }
 
@@ -130,8 +175,39 @@ def test_every_host_module_of_the_port_is_listed():
               "parallel/federation.py", "rest/server.py",
               "sim/__init__.py", "sim/__main__.py"}
     for sub in ("utils", "chaos", "state", "native", "obs", "backends",
-                "scheduler", "rest", "plugins", "agent", "sim"):
+                "scheduler", "rest", "plugins", "agent", "sim", "cli",
+                "client", "integrations"):
         for f in (PORT / sub).rglob("*"):
             rel = f.relative_to(PORT).as_posix()
             if f.suffix in (".py", ".cpp") and "__pycache__" not in rel:
                 assert rel in COPIES or rel in ported, rel
+
+
+# the reference's modules with no counterpart of the same path in the
+# port, and why
+UNPORTED = {
+    # the static checker; its rule R1 is about jax.jit purity: still to
+    # port, with R1 re-aimed at host syncs in the port's device functions
+    "analysis/*": "still to port",
+    # the two Pallas kernels: the hand-written CUDA kernels of csrc/
+    # behind ops/fused_match.py
+    "ops/pallas_match.py": "ops/fused_match.py and csrc/",
+    # whether Pallas lowers on the TPU: the port has one route a device
+    # (its kernels on CUDA, their plain versions on the CPU), nothing to
+    # probe
+    "ops/pallas_probe.py": "none",
+}
+
+
+def test_every_module_of_the_reference_has_a_counterpart():
+    missing = set()
+    for f in REF.rglob("*.py"):
+        rel = f.relative_to(REF).as_posix()
+        if "__pycache__" in rel or (PORT / rel).exists():
+            continue
+        top = rel.split("/")[0]
+        missing.add(f"{top}/*" if f"{top}/*" in UNPORTED else rel)
+    assert missing == set(UNPORTED)
+    assert (PORT / "ops/fused_match.py").exists()
+    assert {"exact_scan.cu", "best_host.cu"} <= {
+        f.name for f in (PORT / "csrc").glob("*.cu")}

@@ -5,6 +5,10 @@
   `rest.server.build_scheduler` taking a job through its API, the
   simulator, and the mesh paths of `entry.dryrun_multichip`) never
   imports jax nor any cook_tpu module;
+* the node agent (`python -m cook_tpu_torch.agent`, for --help and
+  while it runs), the `cs` CLI and the API-server stand-in import
+  neither torch, jax nor cook_tpu; the server imports torch but neither
+  of the others;
 * no file of the port, nor chip_smoke.py nor bench_torch.py, imports jax
   or cook_tpu, and bench_torch.py runs on the CPU without them;
 * entry points default to CUDA and raise when it is absent;
@@ -21,6 +25,7 @@
 import ast
 import json
 import os
+import signal
 import subprocess
 import sys
 from pathlib import Path
@@ -37,6 +42,10 @@ import importlib, pkgutil, sys
 import cook_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(cook_tpu_torch.__path__,
                                               "cook_tpu_torch.")]
+# the agent's and the CLI's __main__ run their entry point when
+# imported: test_entry_point_imports_no_banned_package runs them
+mods = [m for m in mods if m not in ("cook_tpu_torch.agent.__main__",
+                                     "cook_tpu_torch.cli.__main__")]
 for m in mods:
     importlib.import_module(m)
 from cook_tpu_torch import entry
@@ -108,6 +117,81 @@ def test_port_process_never_imports_jax_or_cook_tpu():
             if ln.startswith("MODULES")][-1]
     assert line.endswith("BAD []"), line
     assert int(line.split()[1]) >= 10
+
+
+# an entry point as `python -m` runs it; at its exit, or on SIGTERM
+# while it serves, the modules of the banned packages it imported
+_ENTRY_CHILD = r"""
+import json, os, runpy, signal, sys
+mod, banned = sys.argv[1], sys.argv[2].split(",")
+sys.argv = [mod] + sys.argv[3:]
+def report(*_):
+    bad = sorted(n for n in sys.modules if n.split(".")[0] in banned)
+    print("BAD " + json.dumps(bad), flush=True)
+    os._exit(0)
+signal.signal(signal.SIGTERM, report)
+try:
+    runpy.run_module(mod, run_name="__main__", alter_sys=True)
+except SystemExit:
+    pass
+report()
+"""
+
+_HOST_ONLY = "torch,jax,jaxlib,cook_tpu"
+# (module, banned packages, arguments, a line it prints once serving;
+# None: it exits by itself)
+ENTRY_POINTS = {
+    "agent --help": ("cook_tpu_torch.agent", _HOST_ONLY, ["--help"], None),
+    # up, retrying its registration with a coordinator that never answers
+    "agent": ("cook_tpu_torch.agent", _HOST_ONLY,
+              ["--coordinator", "http://127.0.0.1:9", "--hostname", "iso",
+               "--sandbox-root", "{tmp}/sandboxes"], "register failed"),
+    "cli --help": ("cook_tpu_torch.cli", _HOST_ONLY, ["--help"], None),
+    "cli config": ("cook_tpu_torch.cli", _HOST_ONLY,
+                   ["--config", "{tmp}/cs.json", "config", "--get",
+                    "clusters"], None),
+    "standin": ("cook_tpu_torch.backends.kube.standin", _HOST_ONLY,
+                ["--port", "0", "--nodes", "2", "--kubelet-sim"],
+                "apiserver stand-in on"),
+    "server": ("cook_tpu_torch.rest.server", "jax,jaxlib,cook_tpu",
+               ["--device", "cpu", "--port", "0", "--config",
+                "{tmp}/server.json"], "listening"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_imports_no_banned_package(name, tmp_path):
+    """The node agent, the CLI and the stand-in import neither torch,
+    jax nor cook_tpu; the server imports torch but neither of the
+    others."""
+    mod, banned, args, ready = ENTRY_POINTS[name]
+    (tmp_path / "server.json").write_text(json.dumps({
+        "clusters": [{"kind": "agent", "name": "agents"}],
+        "auth": {"agent_token": "t"}}))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(ROOT)
+    env["HOME"] = str(tmp_path)
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-c", _ENTRY_CHILD, mod, banned,
+         *[a.format(tmp=tmp_path) for a in args]], cwd=str(tmp_path),
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if ready is not None and ready in line:
+                proc.send_signal(signal.SIGTERM)
+            if line.startswith("BAD "):
+                break
+        proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+    assert proc.returncode == 0, lines[-20:]
+    assert lines and lines[-1] == "BAD []", lines[-20:]
 
 
 def _imports(path):
