@@ -52,6 +52,33 @@ its device entry points on one NVIDIA GPU.
                                         durable); sequential_threshold
                                         512; the async consumer; 8,400
                                         cycles
+    python3 bench_torch.py ingest       bench.py::bench_ingest: durable
+                                        REST ingest, jobs/s at
+                                        201-after-fsync: 2,000 sequential
+                                        singles, 8,000 from 8 clients,
+                                        30,000 in bulk batches of 256
+                                        (--n-single / --n-conc /
+                                        --n-bulk), then a cold replay
+                                        that must hold every acked uuid
+    python3 bench_torch.py fleet        bench.py::bench_fleet: one
+                                        fleet-worker process, then
+                                        --groups (4) at once, each its
+                                        own CUDA context on the card;
+                                        aggregate durable decisions/s,
+                                        bench.py's gate (3x the single
+                                        worker and 25,000 decisions/s,
+                                        FLEET_BENCH_SPEEDUP / _FLOOR)
+                                        where the host has a core per
+                                        group; exits non-zero when a gate
+                                        fails
+    python3 bench_torch.py fleet-worker one fleet member: bench_e2e at
+                                        10k pending x 1k hosts, 100
+                                        users, 40 cycles, the first 8
+                                        untimed, the durability check on
+                                        (FLEET_BENCH_P0 / _H / _U /
+                                        _CYCLES / _WARMUP / _SHARDS, as
+                                        bench.py; fleet's members
+                                        inherit them)
 
 Each mode draws bench.py's seeded inputs in bench.py's order, runs on the
 card (`--device cpu` with smaller `--R/--P/--H/--U/--C/--T0` runs the
@@ -80,6 +107,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import hashlib
 import json
 import os
 import subprocess
@@ -626,19 +654,23 @@ def bench_rebalance(T0=50_000, P=64, H=2_000, U=500, sweeps=7,
 
 def bench_e2e(P0=100_000, H=10_000, U=500, cycles=560, warmup=15,
               consider=None, pipeline_depth=None, async_consumer=False,
-              label=None, durability_check=False, device="cuda", **knobs):
+              label=None, durability_check=False, device="cuda",
+              digests=False, **knobs):
     """bench.py::bench_e2e on the port (cook_tpu_torch/e2e.py); `knobs`
     are bench_e2e's others (pools, store_shards, runtime_s, rotate_lines,
     sequential_threshold, native), e2e.Workload's defaults where not
-    given. Returns the printed line."""
+    given. With `digests` the line also has `launch_digests`. Returns
+    the printed line."""
     import torch
     from cook_tpu_torch import e2e
     from cook_tpu_torch.device import resolve_device
     from cook_tpu_torch.native import consumefold
+    from cook_tpu_torch.ops import fused_match as fm
     from cook_tpu_torch.scheduler.tensorize import bucket
 
     dev = resolve_device(device)
     build_s = _prepare(dev)
+    launches0 = dict(fm.LAUNCHES)
     t0 = time.perf_counter()
     w = e2e.Workload(P0=P0, H=H, U=U, consider=consider,
                      pipeline_depth=pipeline_depth,
@@ -648,10 +680,17 @@ def bench_e2e(P0=100_000, H=10_000, U=500, cycles=560, warmup=15,
     e2e.apply_gc_discipline()
     w.start_threads()
     try:
+        marks = []     # launches so far after each cycle's match
         t0 = time.perf_counter()
-        r = e2e.run_cycles(w, cycles, warmup)
+        r = e2e.run_cycles(w, cycles, warmup,
+                           on_cycle=lambda c, s: marks.append(
+                               len(w.launched)))
         wall_s = time.perf_counter() - t0
+        marks.append(len(w.launched))      # the final drain's
         durability = w.durability_check() if durability_check else None
+        # this run's kernel launches (warm-up and timed cycles, the
+        # drain), before the profiled cycle
+        ran = {k: v - launches0.get(k, 0) for k, v in fm.LAUNCHES.items()}
 
         def one_cycle():
             # one bench cycle: all K pools' match_cycles (the profiler,
@@ -687,6 +726,7 @@ def bench_e2e(P0=100_000, H=10_000, U=500, cycles=560, warmup=15,
                 "port_kernel_launches"),
             "host_syncs_per_cycle": prof["host_syncs"],
             "host_sync_sources": prof.get("host_sync_sources"),
+            "kernel_launches": ran,
             "profile_note": "one bench cycle, all pools: the profiler and "
                             "the sync debug mode are process-wide",
             "num_considerable": C,
@@ -717,6 +757,10 @@ def bench_e2e(P0=100_000, H=10_000, U=500, cycles=560, warmup=15,
         }
         if durability is not None:
             out["durability_check"] = durability
+        if digests:
+            # the backend launches made during each bench cycle, then
+            # the final drain's
+            out["launch_digests"] = launch_digests(w.launched, marks)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         print(json.dumps(out), flush=True)
@@ -724,6 +768,315 @@ def bench_e2e(P0=100_000, H=10_000, U=500, cycles=560, warmup=15,
     finally:
         w.close()
 
+
+def launch_digests(launched, marks) -> list:
+    """The launched (job uuid, hostname) pairs between consecutive
+    `marks` (counts of `launched` after each cycle), each group as the
+    first 16 hex digits of the SHA-256 of its pairs sorted, one "uuid
+    hostname" a line: a cycle by cycle record of the decisions short
+    enough for the printed line."""
+    out, lo = [], 0
+    for hi in marks:
+        text = "\n".join(f"{u} {h}" for u, h in sorted(launched[lo:hi]))
+        out.append(hashlib.sha256(text.encode()).hexdigest()[:16])
+        lo = hi
+    return out
+
+
+def bench_ingest(n_single=2_000, n_conc=8_000, n_bulk=30_000, threads=8,
+                 batch=256, workers=4, device="cuda"):
+    """bench.py::bench_ingest on the port's REST stack: durable ingest
+    throughput, jobs/s from POST to 201, where every 201 means the job's
+    group-commit fdatasync already ran. Three legs over one live HTTP
+    server and durable store: sequential singles (one client, one job a
+    request), `threads` concurrent singles (the ingest workers coalesce
+    them into shared group commits) and `threads` concurrent clients
+    posting /jobs/bulk batches of `batch`. It ends with a cold replay of
+    the event log that must hold every acked uuid. The coordinator is
+    built on `device` but runs no cycle: ingest is host work. Returns
+    the printed line."""
+    import tempfile
+    import threading as th
+    import uuid as uuidlib
+
+    from cook_tpu_torch.backends.base import ClusterRegistry
+    from cook_tpu_torch.backends.mock import MockCluster, MockHost
+    from cook_tpu_torch.client import JobClient
+    from cook_tpu_torch.device import resolve_device
+    from cook_tpu_torch.rest.api import CookApi
+    from cook_tpu_torch.rest.auth import AuthConfig
+    from cook_tpu_torch.rest.ingest import IngestBatcher
+    from cook_tpu_torch.rest.server import ApiServer
+    from cook_tpu_torch.scheduler.coordinator import (Coordinator,
+                                                      SchedulerConfig)
+    from cook_tpu_torch.state.store import JobStore
+
+    dev = resolve_device(device)
+    fd, log_path = tempfile.mkstemp(prefix="cook_ingest_", suffix=".log")
+    os.close(fd)
+    store = JobStore(log_path=log_path)
+    reg = ClusterRegistry()
+    reg.register(MockCluster([MockHost("h0", mem=1000.0, cpus=16.0)]))
+    coord = Coordinator(store, reg, config=SchedulerConfig(), device=dev)
+    ingest = IngestBatcher(store, workers=workers, queue_depth=256,
+                           max_batch=512)
+    api = CookApi(store, coordinator=coord,
+                  auth=AuthConfig(scheme="header"), ingest=ingest)
+    server = ApiServer(api).start()
+    acked = []              # uuids whose 201 came back
+    acked_lock = th.Lock()
+    try:
+        def spec():
+            return {"uuid": str(uuidlib.uuid4()), "command": "true",
+                    "mem": 32.0, "cpus": 0.5}
+
+        def run_threads(n, fn):
+            errs = []
+
+            def worker(i):
+                try:
+                    fn(i)
+                except Exception as e:   # surface, don't hang the join
+                    errs.append(e)
+
+            ts = [th.Thread(target=worker, args=(i,)) for i in range(n)]
+            t0 = time.perf_counter()
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+            if errs:
+                raise errs[0]
+            return time.perf_counter() - t0
+
+        # leg 1: sequential singles, one fsync per 201
+        cli = JobClient(server.url, user="u0")
+
+        def single_seq(_i):
+            for _ in range(n_single):
+                s = spec()
+                cli.submit(command=s["command"], mem=s["mem"],
+                           cpus=s["cpus"], uuid=s["uuid"])
+                with acked_lock:
+                    acked.append(s["uuid"])
+
+        single_s = n_single / run_threads(1, single_seq)
+
+        # leg 2: concurrent singles, coalesced across requests
+        per = n_conc // threads
+        clis = [JobClient(server.url, user=f"u{i}") for i in range(threads)]
+
+        def single_conc(i):
+            for _ in range(per):
+                s = spec()
+                clis[i].submit(command=s["command"], mem=s["mem"],
+                               cpus=s["cpus"], uuid=s["uuid"])
+                with acked_lock:
+                    acked.append(s["uuid"])
+
+        conc_s = (per * threads) / run_threads(threads, single_conc)
+
+        # leg 3: bulk batches through /jobs/bulk and admission control
+        nb = n_bulk // (threads * batch)
+
+        def bulk(i):
+            for _ in range(nb):
+                got = clis[i].submit_jobs_bulk(
+                    [spec() for _ in range(batch)])
+                with acked_lock:
+                    acked.extend(got)
+
+        bulk_s = (nb * batch * threads) / run_threads(threads, bulk)
+
+        # 201-after-durable, proven cold: replay the log as a restart
+        # after a crash would and demand every acked uuid
+        replayed = JobStore.restore(None, log_path=log_path,
+                                    open_writer=False)
+        missing = [u for u in acked if u not in replayed.jobs]
+        out = {
+            "metric": "durable REST ingest, jobs/s at 201-after-fsync",
+            "value": round(bulk_s, 1),
+            "unit": "jobs/sec",
+            "single_seq_jps": round(single_s, 1),
+            "single_conc_jps": round(conc_s, 1),
+            "bulk_jps": round(bulk_s, 1),
+            "coalesce_speedup": round(conc_s / single_s, 2),
+            "bulk_speedup": round(bulk_s / single_s, 2),
+            "threads": threads,
+            "batch": batch,
+            "ingest_workers": workers,
+            "acked_total": len(acked),
+            "durability_check": {"acked_all_durable": not missing,
+                                 "acked": len(acked),
+                                 "replayed": len(replayed.jobs),
+                                 "missing": len(missing)},
+            "shape": {"n_single": n_single, "n_conc": n_conc,
+                      "n_bulk": n_bulk},
+            **device_fields(dev),
+        }
+        print(json.dumps(out), flush=True)
+        return out
+    finally:
+        server.stop()
+        ingest.stop()
+        try:
+            os.unlink(log_path)
+        except OSError:
+            pass
+
+
+# bench.py::_fleet_worker's bench_e2e settings, each overridden by its
+# FLEET_BENCH_* variable (bench_fleet passes them on to its members)
+FLEET_WORKER = dict(P0=10_000, H=1_000, U=100, CYCLES=40, WARMUP=8,
+                    SHARDS=1)
+FLEET_FLOOR, FLEET_SPEEDUP = 25_000.0, 3.0
+
+
+def fleet_scale() -> dict:
+    """A fleet member's scale: FLEET_WORKER, each overridden by its
+    FLEET_BENCH_* variable."""
+    return {k: int(os.environ.get(f"FLEET_BENCH_{k}", v))
+            for k, v in FLEET_WORKER.items()}
+
+
+def fleet_worker(device="cuda"):
+    """One fleet member (bench.py::_fleet_worker): a full durable e2e
+    coordinator run (bench_e2e, the durability check on, one pool) in
+    this process, at `fleet_scale()`: CYCLES bench cycles in all, the
+    first WARMUP untimed, as bench.py's bench_e2e counts them; its line
+    has the launch digests. Returns the printed line."""
+    env = fleet_scale()
+    return bench_e2e(P0=env["P0"], H=env["H"], U=env["U"],
+                     cycles=env["CYCLES"] - env["WARMUP"],
+                     warmup=env["WARMUP"], durability_check=True, pools=1,
+                     store_shards=env["SHARDS"], device=device,
+                     digests=True,
+                     label=f"fleet member "
+                           f"{os.environ.get('FLEET_WORKER_ID', '0')}")
+
+
+def compute_mode(dev) -> str | None:
+    """nvidia-smi's compute mode of the card (None on the CPU): the
+    fleet's N processes share the card only in the Default mode."""
+    if dev.type != "cuda":
+        return None
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def bench_fleet(groups=4, device="cuda", timeout_s=1800):
+    """bench.py::bench_fleet on the port: aggregate durable e2e
+    decisions/s of `groups` fleet-worker processes run at once (one
+    leader group each, its own store and pool, its own CUDA context on
+    the one card) against one worker run just before. Every
+    worker runs bench_e2e's cold-replay durability check. bench.py's
+    gate: at least FLEET_SPEEDUP x the single worker and FLEET_FLOOR
+    decisions/s (FLEET_BENCH_SPEEDUP / _FLOOR), applied only when the
+    host has a core per group; the durability gates always. The kernels
+    are built here once before any worker starts. The members inherit
+    this process's environment, FLEET_BENCH_* included (`fleet_scale`).
+    Returns the printed line."""
+    from cook_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    build_s = _prepare(dev)
+    floor = float(os.environ.get("FLEET_BENCH_FLOOR", FLEET_FLOOR))
+    min_speedup = float(os.environ.get("FLEET_BENCH_SPEEDUP",
+                                       FLEET_SPEEDUP))
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def run_workers(n):
+        procs = []
+        for i in range(n):
+            env = dict(os.environ)
+            env["FLEET_WORKER_ID"] = str(i)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(here, "bench_torch.py"),
+                 "fleet-worker", "--device", dev.type],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env,
+                cwd=here))
+        outs = []
+        try:
+            for i, p in enumerate(procs):
+                raw, err = p.communicate(timeout=timeout_s)
+                if p.returncode != 0:
+                    raise SystemExit(f"fleet worker {i} failed "
+                                     f"(rc={p.returncode}): "
+                                     f"{err.decode()[-2000:]}")
+                outs.append(_last_json(raw.decode()))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        return outs
+
+    t0 = time.monotonic()
+    single = run_workers(1)[0]
+    fleet = run_workers(groups)
+    wall_s = time.monotonic() - t0
+
+    def slim(w):
+        d = w.get("durability_check", {})
+        return {"dps": w["value"],
+                "phase_means_ms": w.get("phase_means_ms", {}),
+                "p99_cycle_ms": w.get("p99_cycle_ms"),
+                "state_hash_match": bool(d.get("state_hash_match")),
+                "acked_all_durable": bool(d.get("acked_all_durable")),
+                "platform": w["device"]["platform"],
+                "exact_scan_launches": w["kernel_launches"]["exact_scan"],
+                "kernel_launches": w["kernel_launches"],
+                "device_idle_share": w.get("device_idle_share")}
+
+    per_group = [slim(w) for w in fleet]
+    aggregate = round(sum(g["dps"] for g in per_group), 1)
+    speedup = round(aggregate / single["value"], 2) \
+        if single["value"] else 0.0
+    durable_ok = all(g["state_hash_match"] and g["acked_all_durable"]
+                     for g in per_group + [slim(single)])
+    cores = os.cpu_count() or 1
+    parallel_gated = cores >= groups
+    scale_ok = (not parallel_gated) or \
+        (speedup >= min_speedup and aggregate >= floor)
+    out = {
+        "metric": f"fleet aggregate durable decisions/s, "
+                  f"{groups} leader groups",
+        "value": aggregate,
+        "unit": "decisions/sec (sum over groups, cold-replay "
+                "durability checked per group)",
+        "ok": durable_ok and scale_ok,
+        "groups": groups,
+        "single_leader_dps": single["value"],
+        "speedup_vs_single": speedup,
+        "speedup_gate": {
+            "applied": parallel_gated,
+            "min_speedup": min_speedup,
+            "floor_dps": floor,
+            "note": (None if parallel_gated else
+                     f"host has {cores} core(s) < {groups} groups: "
+                     "workers timeshare, so the scale gate is "
+                     "informational; durability gates still bind")},
+        "state_hash_match": all(g["state_hash_match"] for g in per_group),
+        "durable_ok": durable_ok,
+        "scale_ok": scale_ok,
+        "per_group": per_group,
+        "single_leader": slim(single),
+        "wall_s": round(wall_s, 1),
+        "cores": cores,
+        "compute_mode": compute_mode(dev),
+        "worker_scale": fleet_scale(),
+        "build_s": build_s,
+        **device_fields(dev),
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _last_json(text: str) -> dict:
+    return json.loads([ln for ln in text.splitlines()
+                       if ln.startswith("{")][-1])
 
 MODES = {
     "headline": dict(R=10_000, P=100_000, H=10_000, U=500, C=8_192),
@@ -741,6 +1094,9 @@ MODES = {
     "e2e-async": dict(P0=100_000, H=10_000, U=500),
     "longevity": dict(P0=100_000, H=10_000, U=500),
     "longevity-async": dict(P0=100_000, H=10_000, U=500),
+    "ingest": dict(n_single=2_000, n_conc=8_000, n_bulk=30_000),
+    "fleet": {},
+    "fleet-worker": {},
 }
 # bench.py main()'s settings of bench_e2e for each e2e mode
 E2E_MODES = {
@@ -811,7 +1167,19 @@ def main(argv=None):
     ap.add_argument("--native", type=int, choices=(0, 1), default=None,
                     help="e2e native consume folds (1) or Python (0)")
     ap.add_argument("--sweeps", type=int, default=7)
+    for k in ("n_single", "n_conc", "n_bulk"):
+        ap.add_argument(f"--{k.replace('_', '-')}", type=int, default=None,
+                        help="ingest: jobs of the leg (bench.py's 2,000 / "
+                             "8,000 / 30,000)")
+    ap.add_argument("--groups", type=int, default=4,
+                    help="fleet: leader groups (bench.py's argv[2], 4)")
     a = ap.parse_args(argv)
+    if a.mode in ("fleet", "fleet-worker"):
+        given = [k for k in ("P0", "H", "U", "cycles", "warmup")
+                 if getattr(a, k) is not None]
+        if given:
+            ap.error(f"{a.mode} takes its scale from FLEET_BENCH_* only, "
+                     f"not --{', --'.join(given)}")
     shape = dict(MODES[a.mode])
     for k in shape:
         v = getattr(a, k)
@@ -820,7 +1188,17 @@ def main(argv=None):
     here = os.path.dirname(os.path.abspath(__file__))
     if here not in sys.path:
         sys.path.insert(0, here)
-    if a.mode == "rebalance":
+    if a.mode == "ingest":
+        out = bench_ingest(**shape, device=a.device)
+        if not out["durability_check"]["acked_all_durable"]:
+            sys.exit(f"ingest durability check failed: "
+                     f"{out['durability_check']}")
+    elif a.mode == "fleet-worker":
+        fleet_worker(device=a.device)
+    elif a.mode == "fleet":
+        if not bench_fleet(groups=a.groups, device=a.device)["ok"]:
+            sys.exit(1)
+    elif a.mode == "rebalance":
         bench_rebalance(**shape, sweeps=a.sweeps, device=a.device)
     elif a.mode == "pools":
         bench_pools(**shape, cycles=a.cycles or 30, device=a.device)

@@ -205,9 +205,10 @@
    racks the smoke labels the hosts with, seeded) are POSTed to
    /jobs/bulk over HTTP from 8 client threads, one user's jobs a request
    (at most 1,000), through the ingest batcher; then the cycle threads
-   start as `main`'s on_leadership starts them and run until 30 resident
-   cycles have launched jobs. exact_scan must launch once a cycle, each
-   cycle launch 1,024 while the backlog lasts, no job launch twice, and
+   start as `main`'s on_leadership starts them and run until
+   SERVER_CYCLES (20) resident cycles have launched jobs. exact_scan
+   must launch once a cycle, each cycle launch 1,024 while the backlog
+   lasts, no job launch twice, and
    every launched job read running or success through GET /jobs/<uuid>.
    Prints the ingest rate (first POST to last 201) and the host-clock
    p50 / p99 of the cycles and of the profiler's phases (drain, ship,
@@ -324,7 +325,35 @@
      lease, replay the log, rebuild its resident pool and run every job
      to success, launching exact_scan. Prints the milliseconds from the
      kill to the survivor's first launch.
-14. Prints timings as JSON: per cycle CUDA events from the delta upload
+14. The port's cookcheck (cook_tpu_torch/analysis) against the card, and
+   bench_torch.py's ingest and fleet modes:
+   - R1 against the traced syncs: one resident sequential and one
+     batched cycle (the deployment of 4 and 5, after a warm cycle)
+     under PyTorch's sync debug mode, beside the e2e phase's traced
+     cycles (sequential, batched), the rebalance phase's sweeps (which
+     that phase already requires to trace none) and every other cycle
+     or call an earlier phase traced (the mesh paths, bench.py's entry
+     points, the agents). R1 then runs
+     over cook_tpu_torch/ with no baseline and no suppressions: every
+     traced `file:line` in ops/, parallel/ or scheduler/resident.py must
+     be one of its findings. Prints the static findings, the traced
+     sites, the sites missed (0), and the traced sites elsewhere in the
+     port and outside it, by file:line.
+   - `python -m cook_tpu_torch.analysis --strict` in a subprocess: exit
+     0 against the port's baseline, and its wall seconds.
+   - ingest: bench_torch.py's ingest leg at ANALYSIS_INGEST jobs (200
+     sequential singles, 800 concurrent, 3,000 bulk), the cold replay
+     holding every acked uuid.
+   - fleet: bench_torch.py's fleet at 2 groups of bench.py's fleet
+     member cut to 10 cycles, the first 3 untimed, through its
+     FLEET_BENCH_* variables (a single member, then two at
+     once, each its own process and CUDA context on the card, the
+     kernels built once before): every member on cuda, exact_scan
+     launched, the cold replay's state hash and acked jobs durable.
+     Prints the aggregate and single-leader decisions/s and the
+     speedup; the scale gate is bench_torch.py fleet's, not this
+     script's.
+15. Prints timings as JSON: per cycle CUDA events from the delta upload
    to the prefix readback, and the host clock around the whole cycle
    (including the workload's own bookkeeping); each kernel alone by CUDA
    events, exact_scan also at its dependency floor (S=1024 with one warp
@@ -417,7 +446,8 @@ SERVER_P, SERVER_H, SERVER_U = 100_000, 10_000, 500
 SERVER_CONSTRAINED, SERVER_RACKS = 0.02, 50
 SERVER_BATCH, SERVER_CLIENTS = 1_000, 8
 SERVER_INTERVAL_S = 0.05
-SERVER_CYCLES, SERVER_MAX_S = 30, 240
+# 30 cycles until the analysis phase came (cut to make room for it)
+SERVER_CYCLES, SERVER_MAX_S = 20, 240
 SERVER_BATCHED_MAX_S = 120
 SERVER_AGREE = 4
 # the operator's `python -m` boot: jobs posted, seconds allowed to boot
@@ -486,6 +516,15 @@ AGENTS_MAX_S = 240
 KUBE_NODES, KUBE_JOBS, KUBE_RUNTIME_S, KUBE_MAX_S = 256, 2_000, 1.0, 180
 # the failover leg: the jobs (sleep 1, 1 cpu) on one agent of 8 cpus
 FAILOVER_JOBS, FAILOVER_AGENT_CPUS, FAILOVER_MAX_S = 24, 8.0, 240
+# phase 14: the ingest leg's jobs (bench.py's 2,000 / 8,000 / 30,000
+# cut) and the fleet's groups and member cycles (bench.py's 4 groups,
+# 40 cycles of which 8 untimed, cut), set as FLEET_BENCH_* variables
+ANALYSIS_INGEST = dict(n_single=200, n_conc=800, n_bulk=3_000)
+ANALYSIS_FLEET_GROUPS = 2
+ANALYSIS_FLEET_ENV = {"FLEET_BENCH_CYCLES": "10", "FLEET_BENCH_WARMUP": "3"}
+# the port's files R1 covers when it scans the package
+R1_SCOPE = ("cook_tpu_torch/ops/", "cook_tpu_torch/parallel/",
+            "cook_tpu_torch/scheduler/resident.py")
 
 
 T_START = time.perf_counter()
@@ -1724,7 +1763,9 @@ def e2e_phase(dev):
                      f"{got['completed']} completions")
             jobs = [u for u, _ in got["launched"]]
             if len(set(jobs)) != len(jobs):
-                fail(f"{label}: a job launched twice")
+                twice = dict(list(got["repeats"].items())[:5])
+                fail(f"{label}: a job launched twice; instances (host, "
+                     f"status, reason): {twice}")
             if mode == "pipelined" and got["max_inflight"] < 2:
                 fail(f"{label}: never two cycles in flight")
             readback.append({"matcher": name, "mode": mode,
@@ -3561,6 +3602,151 @@ def agents_phase(dev):
              "failover": fo_launches})
 
 
+def _traced_syncs(obj, label, into):
+    """Every `host_sync_sources` an earlier phase's output holds, by
+    where it sits in that output."""
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            if k == "host_sync_sources" and isinstance(v, dict):
+                into[label] = v
+            else:
+                _traced_syncs(v, f"{label}.{k}", into)
+    elif isinstance(obj, list):
+        for i, v in enumerate(obj):
+            _traced_syncs(v, f"{label}.{i}", into)
+    return into
+
+
+def analysis_phase(dev, traced_phases):
+    """14: the port's cookcheck against the syncs the card traces, and
+    bench_torch.py's ingest and fleet (see the module docstring).
+    `traced_phases` are earlier phases' outputs ({name: output}): their
+    traced syncs join this phase's. Returns (stats, launches by
+    path)."""
+    import torch
+
+    import bench_torch
+    from cook_tpu_torch.analysis import analyze_paths
+    from cook_tpu_torch.entry import resident_workload
+    from cook_tpu_torch.ops import fused_match as fm
+    from cook_tpu_torch.profile_cycle import sync_sources
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    stats, launches = {}, {}
+    # ---- R1 against the traced syncs ------------------------------------
+    traced = {}
+    for name, kw in (("sequential", {}), ("batched", {"C": C_BATCHED})):
+        w = resident_workload(device=dev, seed=0, **kw)
+        w.cycle(use_kernel=True)
+        torch.cuda.synchronize()
+        fm.reset_launches()
+        traced[f"resident_{name}"] = sync_sources(
+            lambda: w.cycle(use_kernel=True))
+        launches[f"analysis_{name}"] = dict(fm.LAUNCHES)
+        if launches[f"analysis_{name}"]["exact_scan"] != 1:
+            fail(f"analysis {name} cycle: exact_scan launched "
+                 f"{launches[f'analysis_{name}']['exact_scan']} times")
+        del w
+    for name, out in traced_phases.items():
+        _traced_syncs(out, name, traced)
+    if not {"e2e.sequential", "e2e.batched"} <= set(traced):
+        fail(f"analysis: the e2e phase's traced syncs are missing "
+             f"({sorted(traced)})")
+    # the rebalance phase fails on any sync a sweep traces
+    traced["rebalance"] = {}
+    t0 = time.perf_counter()
+    found = analyze_paths([os.path.join(here, "cook_tpu_torch")], here,
+                          rules=("R1",), apply_suppressions=False)
+    r1_s = time.perf_counter() - t0
+    static = {f"{f.path}:{f.line}" for f in found}
+    sites = {}
+    for src in traced.values():
+        for site, n in src.items():
+            sites[site] = sites.get(site, 0) + n
+    in_scope = sorted(s for s in sites if s.startswith(R1_SCOPE))
+    missed = [s for s in in_scope if s not in static]
+    elsewhere = sorted(s for s in sites if s.startswith("cook_tpu_torch/")
+                       and s not in in_scope)
+    outside = sorted(s for s in sites if not s.startswith("cook_tpu_torch/"))
+    stats["r1"] = {
+        "static_findings": len(found), "static_sites": len(static),
+        "traced_sites": len(sites), "traced_sites_in_scope": len(in_scope),
+        "traced_sites_missed": len(missed), "missed": missed,
+        "in_scope": {s: sites[s] for s in in_scope},
+        "elsewhere_in_port": {s: sites[s] for s in elsewhere},
+        "outside_port": {s: sites[s] for s in outside},
+        "traced_by_path": traced, "scan_s": r1_s}
+    print(json.dumps({"analysis_r1": stats["r1"]}), flush=True)
+    if missed:
+        fail(f"R1 misses traced syncs: {missed}")
+    if not in_scope:
+        fail("no traced sync in ops/, parallel/ or resident.py: nothing "
+             "held R1 to the card")
+    # ---- the checker as a user runs it --------------------------------
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cook_tpu_torch.analysis", "--strict"],
+        cwd=here, capture_output=True, text=True, timeout=600)
+    stats["strict"] = {"rc": proc.returncode,
+                       "wall_s": time.perf_counter() - t0,
+                       "summary": proc.stdout.strip().splitlines()[-1:]}
+    print(json.dumps({"analysis_strict": stats["strict"]}), flush=True)
+    if proc.returncode != 0:
+        fail(f"python -m cook_tpu_torch.analysis --strict exited "
+             f"{proc.returncode}: {proc.stdout[-2000:]}")
+    # ---- bench_torch.py ingest ------------------------------------------
+    fm.reset_launches()
+    ingest = bench_torch.bench_ingest(**ANALYSIS_INGEST, device=dev)
+    launches["ingest"] = dict(fm.LAUNCHES)
+    if not ingest["durability_check"]["acked_all_durable"] or \
+            ingest["acked_total"] == 0:
+        fail(f"ingest: {ingest['durability_check']}")
+    stats["ingest"] = ingest
+    # ---- bench_torch.py fleet --------------------------------------------
+    saved = {k: os.environ.get(k) for k in ANALYSIS_FLEET_ENV}
+    os.environ.update(ANALYSIS_FLEET_ENV)
+    try:
+        fleet = bench_torch.bench_fleet(groups=ANALYSIS_FLEET_GROUPS,
+                                        device=dev, timeout_s=600)
+    except SystemExit as e:
+        fail(f"fleet: {e}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    members = fleet["per_group"] + [fleet["single_leader"]]
+    for i, g in enumerate(members):
+        if g["platform"] != "gpu" or g["exact_scan_launches"] < 1 or \
+                not (g["state_hash_match"] and g["acked_all_durable"]):
+            fail(f"fleet member {i}: {g}")
+    launches["fleet"] = {k: sum(g["kernel_launches"].get(k, 0)
+                                for g in members)
+                         for k in fm.LAUNCHES}
+    stats["fleet"] = fleet
+    summary = {"card": card_line(),
+               "r1_static_findings": len(found),
+               "traced_sites": len(sites),
+               "traced_sites_missed": len(missed),
+               "strict_rc": proc.returncode,
+               "strict_wall_s": stats["strict"]["wall_s"],
+               "ingest_bulk_jps": ingest["bulk_jps"],
+               "ingest_single_seq_jps": ingest["single_seq_jps"],
+               "ingest_single_conc_jps": ingest["single_conc_jps"],
+               "ingest_acked_all_durable":
+                   ingest["durability_check"]["acked_all_durable"],
+               "fleet_aggregate_dps": fleet["value"],
+               "fleet_single_leader_dps": fleet["single_leader_dps"],
+               "fleet_speedup": fleet["speedup_vs_single"],
+               "fleet_compute_mode": fleet["compute_mode"],
+               "fleet_exact_scan_launches": [g["exact_scan_launches"]
+                                             for g in members]}
+    stats["summary"] = summary
+    print(json.dumps({"analysis": summary}), flush=True)
+    return stats, launches
+
+
 def main():
     import faulthandler
     import torch
@@ -3655,8 +3841,12 @@ def main():
     x = xs[CUMSUM_SHAPES[0]]
     cs_plain_ms = cuda_ms(lambda: seg.blocked_cumsum_plain(x), 5)
     cs_lib_ms = cuda_ms(lambda: torch.cumsum(x, dim=0), 50)
+    # torch.cumsum on the layout it scans fast (each column one
+    # contiguous row): with the transpose, and on a transposed copy
     cs_lib_inner_ms = cuda_ms(
         lambda: torch.cumsum(x.t().contiguous(), dim=1), 50)
+    xt = x.t().contiguous()
+    cs_lib_rows_ms = cuda_ms(lambda: torch.cumsum(xt, dim=1), 50)
     CS_MAIN = str(CUMSUM_SHAPES[0])
     cs_bound_ms, cs_bound_by = cs_bound[CS_MAIN]
 
@@ -4042,6 +4232,11 @@ def main():
     # ---- 13. agents, kube over HTTP, leader failover ---------------------
     agents_out, agents_launches = agents_phase(dev)
     mark("agents")
+    # ---- 14. cookcheck against the card; ingest and fleet ----------------
+    analysis_out, analysis_launches = analysis_phase(dev, {
+        "e2e": e2e_out, "parallel": parallel_out, "bench": bench_out,
+        "agents": agents_out})
+    mark("analysis")
 
     def cycle_stats(phase, host, match):
         return {
@@ -4087,6 +4282,7 @@ def main():
         "blocked_cumsum_bound_ms": {k: v[0] for k, v in cs_bound.items()},
         "torch_cumsum_dim0_ms": cs_lib_ms,
         "torch_cumsum_transposed_ms": cs_lib_inner_ms,
+        "torch_cumsum_rows_ms": cs_lib_rows_ms,
         "ordered_scatter_ms": sc_ms,
         "ordered_scatter_plain_ms": sc_plain_ms,
         "ordered_scatter_bound_ms": {k: v[0] for k, v in sc_bound.items()},
@@ -4108,6 +4304,7 @@ def main():
         "parallel": parallel_out,
         "bench": bench_out,
         "agents": agents_out,
+        "analysis": analysis_out,
         "group_routes": gr,
         "group_cells": group_out,
         "rebalance_usage": usage,
@@ -4134,6 +4331,8 @@ def main():
                       for m in bench_launches},
                    **{leg: agents_launches[leg].get(k, 0)
                       for leg in agents_launches},
+                   **{leg: analysis_launches[leg].get(k, 0)
+                      for leg in analysis_launches},
                    **{cell: group_launches[cell][k]
                       for cell in group_launches}}
                for k in seq_launches}
@@ -4182,6 +4381,8 @@ def main():
               "match.py:530-563), no pl.pallas_call", cs_err,
               cs_ms[CS_MAIN], cs_plain_ms, cs_bound[CS_MAIN], cs_lib_ms,
               shape=list(CUMSUM_SHAPES[0]), ms_by_shape=cs_ms,
+              library_transposed_ms=cs_lib_inner_ms,
+              library_rows_ms=cs_lib_rows_ms,
               edge_launches_global_route=by_path[
                   "blocked_cumsum/global"]),
         entry("ordered_scatter", "cuda",

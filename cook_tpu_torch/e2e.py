@@ -31,6 +31,7 @@ only.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import glob
@@ -434,7 +435,9 @@ def launch_trace(device, cycles: int, mode: str = "inline",
     pool), the dense rounds of each cycle, the most cycles in flight
     seen at a consume, the tasks completed, the audit's reads and
     mismatches, with `durable=True` bench_e2e's durability check after
-    the final drain, and each bench cycle's host-clock ms."""
+    the final drain, each bench cycle's host-clock ms, and the instances
+    (hostname, status, reason code) of every job launched more than
+    once."""
     from cook_tpu_torch.ops import match as match_ops
     from cook_tpu_torch.scheduler import resident
 
@@ -497,6 +500,12 @@ def launch_trace(device, cycles: int, mode: str = "inline",
             cut(n0, p0)
             if w.log_path:
                 durability = w.durability_check()
+            # every instance of a job the backend launched more than
+            # once: (hostname, status, reason code) in launch order
+            counts = collections.Counter(u for u, _ in w.launched)
+            repeats = {u: [(i.hostname, i.status.value, i.reason_code)
+                           for i in w.store.jobs[u].instances]
+                       for u, n in counts.items() if n > 1}
         finally:
             resident.read_outputs = read
             w.close()
@@ -504,7 +513,8 @@ def launch_trace(device, cycles: int, mode: str = "inline",
             "per_pool": per_pool, "dense_rounds": dense,
             "max_inflight": seen[0], "completed": done,
             "audited_reads": audited[0], "audit_mismatches": bad,
-            "durability": durability, "cycle_ms": cycle_ms}
+            "durability": durability, "cycle_ms": cycle_ms,
+            "repeats": repeats}
 
 
 # the coordinator's other device paths: a default pool of H_PATHS hosts

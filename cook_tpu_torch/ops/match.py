@@ -323,13 +323,43 @@ def window_size(in_use, c_mem, c_cpus, dense_usable, mem_left, cpus_left,
     return mean_mem, mean_cpus, absorb, W
 
 
+# fixed-point units a unit of demand in `fits_exact`: every f32 of
+# magnitude >= 0.5 is on this grid
+FIT_SCALE = 2.0 ** 24
+
+
+def fits_exact(vals, p_host, left):
+    """Whether each row's running demand on its host is at most that
+    host's `left` + 1e-6, exactly. `vals` (n, k) are the rows' demands
+    (0 for a row that does not bid), run-contiguous by `p_host`, `left`
+    (n, k) each row's host's remaining capacity. The demands are counted
+    in units of 2^-24, rounded up, and summed by `segment_cumsum` in
+    int64: the global prefix less the segment's base is exact, and a
+    total that wraps past 2^63 cancels in the difference, so a segment
+    is exact while its own sum stays below 2^39. Rounding up can only
+    over-count, by under 2^-24 a row whose demand is off that grid
+    (below 0.5)."""
+    q = torch.ceil(vals.double() * FIT_SCALE).to(torch.int64)
+    prefix = segment_cumsum(q, p_host)
+    cap = torch.floor((left.double() + 1e-6) * FIT_SCALE).to(torch.int64)
+    return (prefix <= cap).all(1)
+
+
 def compute_accept(state, choice, bids, jmem, jcpus, jgpus, jgroup,
                    junique, num_groups):
     """Which bids hosts accept (match.py:431-476): claimants in queue
     order while they still fit — bidders stably sorted by host, a
     segmented cumsum of their demands — and at most the first member of
     each unique (group, host) pair, never onto a host that already holds
-    one. Works on any queue-ordered row set; returns the accept mask."""
+    one. Works on any queue-ordered row set; returns the accept mask.
+
+    One difference from the reference: its fit test reads the running
+    demand from an f32 cumsum over every bidder less the segment's base,
+    which at a large total (18,000 cpus over 8,192 bids, an f32 step of
+    0.002) can put a host's last bid up to ~1e-3 past its capacity. The
+    port also demands `fits_exact` of each accepted bid, so it accepts
+    the reference's bids but those that overcommit a host by more than
+    1e-6; wherever the reference's bids fit, the two agree."""
     _, mem_left, cpus_left, gpus_left, slots_left, group_occ = state
     n = jmem.shape[0]
     H = mem_left.shape[0]
@@ -342,10 +372,13 @@ def compute_accept(state, choice, bids, jmem, jcpus, jgpus, jgroup,
                                    device=jmem.device)], -1)
     cums = segment_cumsum(torch.where(p_bids[:, None], vals, 0.0), p_host)
     ph = torch.clamp(p_host, 0, H - 1)
+    left = torch.stack([mem_left[ph], cpus_left[ph], gpus_left[ph]], -1)
     fits_prefix = ((cums[:, 0] <= mem_left[ph] + 1e-6)
                    & (cums[:, 1] <= cpus_left[ph] + 1e-6)
                    & (cums[:, 2] <= gpus_left[ph] + 1e-6)
-                   & (cums[:, 3] <= slots_left[ph]))
+                   & (cums[:, 3] <= slots_left[ph])
+                   & fits_exact(torch.where(p_bids[:, None], vals[:, :3],
+                                            0.0), p_host, left))
     p_group = jgroup[perm].long()
     p_unique = junique[perm]
     gh_key = torch.where(p_unique, p_group * (H + 1) + ph, -1)

@@ -7,8 +7,10 @@ is an integer or a bool, so every comparison is exact.
 Also the launch counters (fused_match.LAUNCHES, match.ROUNDS), which K
 pools' cycles bump from K threads at once: the totals must be exact.
 """
+import functools
 import gc
 import json
+import os
 import sys
 import threading
 import time
@@ -306,3 +308,124 @@ def test_e2e_smoke_knobs_follow_bench_py(monkeypatch):
     assert bench_torch.E2E_MODES["e2e-batched"]["sequential_threshold"] \
         == 512
     assert bench_torch.E2E_MODES["longevity"]["cycles"] == 8400
+
+
+def test_ingest_equals_bench_py(capsys):
+    """bench_torch.py ingest at tiny counts acks, and replays cold from
+    its log, what bench.py's bench_ingest does: every leg's jobs, every
+    acked uuid durable."""
+    kw = dict(n_single=12, n_conc=48, n_bulk=256, threads=4, batch=16,
+              workers=2)
+    ref = {}
+    bench.bench_ingest(**kw, stats_out=ref)
+    capsys.readouterr()
+    got = bench_torch.bench_ingest(**kw, device="cpu")
+    assert set(ref) <= set(got)
+    assert got["acked_total"] == ref["acked_total"] == 12 + 48 + 256
+    assert got["durability_check"] == ref["durability_check"] == {
+        "acked_all_durable": True, "acked": 316, "replayed": 316,
+        "missing": 0}
+    assert got["device"] == {"platform": "cpu"}
+
+
+# a fleet member's scale (FLEET_BENCH_*), and the cycles that launch:
+# at 500 x 50 the first cycle places every job; at 3,000 x 200 each
+# cycle places its 1,024 considered jobs until the hosts fill
+FLEET_TOYS = {
+    "500x50": (dict(P0=500, H=50, U=100, CYCLES=7, WARMUP=2, SHARDS=1), 1),
+    "3000x200": (dict(P0=3000, H=200, U=100, CYCLES=5, WARMUP=1,
+                      SHARDS=1), 3),
+}
+
+
+@pytest.mark.parametrize("toy", sorted(FLEET_TOYS))
+def test_fleet_worker_equals_cook_tpu(capsys, monkeypatch, toy):
+    """One fleet member on the CPU at each FLEET_TOYS scale:
+    `bench_torch.py fleet-worker` in its own process prints bench.py's
+    keys, runs on the device it was given and holds durable
+    what it acked; what it launched, cycle by cycle (its
+    `launch_digests`), is what bench.py's fleet member
+    (bench._fleet_worker on cook_tpu) launches at the same FLEET_BENCH_*
+    scale, its job uuids pinned to the port's, and the two end in the
+    same pending and running counts. The runs are deterministic at these
+    scales: tasks run 10 s of the mock's clock, so none completes within
+    the run and no status races a cycle."""
+    import subprocess
+    from cook_tpu.backends.mock import MockCluster
+    from cook_tpu.scheduler.coordinator import Coordinator
+    from cook_tpu.state import model
+
+    FLEET_TOY, launching = FLEET_TOYS[toy]
+
+    env = dict(os.environ, FLEET_WORKER_ID="3",
+               **{f"FLEET_BENCH_{k}": str(v) for k, v in FLEET_TOY.items()})
+    proc = subprocess.run(
+        [sys.executable, "bench_torch.py", "fleet-worker", "--device",
+         "cpu"], capture_output=True, text=True, env=env, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(bench_torch.__file__)))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    got = _last_json(proc.stdout)
+    for k, v in FLEET_TOY.items():
+        monkeypatch.setenv(f"FLEET_BENCH_{k}", str(v))
+    monkeypatch.setenv("FLEET_WORKER_ID", "3")
+    ref = {}
+    monkeypatch.setattr(bench, "bench_e2e", functools.partial(
+        bench.bench_e2e, stats_out=ref))
+    # bench_e2e's n-th job gets the port workload's n-th uuid; every
+    # backend launch is recorded with the match_cycle it ran in
+    seq = iter(range(10 ** 6))
+    monkeypatch.setattr(model, "new_uuid", lambda: job_uuid(next(seq)))
+    launched, marks = [], []
+    launch, cycle = MockCluster.launch_tasks, Coordinator.match_cycle
+
+    def launch_tasks(self, pool, specs):
+        launched.extend((s.job_uuid, s.hostname) for s in specs)
+        return launch(self, pool, specs)
+
+    def match_cycle(self, *a, **kw):
+        try:
+            return cycle(self, *a, **kw)
+        finally:
+            marks.append(len(launched))
+
+    monkeypatch.setattr(MockCluster, "launch_tasks", launch_tasks)
+    monkeypatch.setattr(Coordinator, "match_cycle", match_cycle)
+    try:
+        bench._fleet_worker()
+    finally:
+        gc.unfreeze()   # bench_e2e's gc discipline freezes the heap
+    marks.append(len(launched))
+    capsys.readouterr()
+    assert got["metric"] == ref["metric"] == \
+        "sched decisions/sec, fleet member 3"
+    assert {"value", "p99_cycle_ms", "phase_means_ms",
+            "durability_check"} <= set(got) & set(ref)
+    assert got["device"] == {"platform": "cpu"} and got["pools"] == 1
+    assert len(marks) == FLEET_TOY["CYCLES"] + 1
+    assert got["cycles"] == FLEET_TOY["CYCLES"] - FLEET_TOY["WARMUP"]
+    assert got["launch_digests"] == bench_torch.launch_digests(launched,
+                                                               marks)
+    assert sum(a < b for a, b in zip([0] + marks, marks)) == launching
+    assert got["durability_check"] == ref["durability_check"]
+    assert got["durability_check"]["acked_all_durable"]
+    assert got["durability_check"]["state_hash_match"]
+
+
+def test_fleet_on_the_cpu(monkeypatch):
+    """bench_torch.py fleet at a toy scale: a single member, then two at
+    once, each in its own process on the device it was given, every
+    one durable; bench.py's keys and gate fields."""
+    for k, v in {"P0": 500, "H": 50, "U": 20, "CYCLES": 3,
+                 "WARMUP": 1}.items():
+        monkeypatch.setenv(f"FLEET_BENCH_{k}", str(v))
+    out = bench_torch.bench_fleet(groups=2, device="cpu")
+    assert out["durable_ok"] and out["state_hash_match"]
+    assert out["groups"] == len(out["per_group"]) == 2
+    for g in out["per_group"] + [out["single_leader"]]:
+        assert g["platform"] == "cpu" and g["acked_all_durable"]
+        assert g["exact_scan_launches"] == 0   # the plain walk on the CPU
+    assert out["speedup_gate"]["applied"] == ((os.cpu_count() or 1) >= 2)
+    assert out["ok"] == (out["durable_ok"] and out["scale_ok"])
+    assert out["worker_scale"]["P0"] == 500
+    assert out["compute_mode"] is None and out["device"] == {
+        "platform": "cpu"}

@@ -43,6 +43,14 @@ backends/kube/standin.py cli/metrics.py cli/plugins.py cli/__init__.py
 cli/__main__.py native/jobclient.py native/jobclient.cpp
 integrations/__init__.py integrations/dask_cook.py
 integrations/spark_cook.py
+analysis/__init__.py analysis/__main__.py analysis/core.py analysis/sarif.py
+analysis/lock_discipline.py analysis/async_hygiene.py analysis/rest_drift.py
+analysis/span_discipline.py analysis/retry_discipline.py
+analysis/metrics_discipline.py analysis/epoch_discipline.py
+analysis/shard_discipline.py analysis/consume_discipline.py
+analysis/membership_discipline.py analysis/profiler_discipline.py
+analysis/interproc.py analysis/lock_order.py analysis/durability.py
+analysis/witness.py
 """.split()
 
 # (original hunk, port hunk) pairs, each applied once to the rewritten
@@ -123,11 +131,184 @@ _OUT = os.path.join(os.path.dirname(_DIR), "_build", "native")
         ('    """`python -m cook_tpu.backends.kube.standin --port 12380',
          '    """`python -m cook_tpu_torch.backends.kube.standin --port 12380'),
     ],
+    # cookcheck checks the port's tree: its entry point, default paths
+    # and baseline, the self-skips, the module anchor and the lock and
+    # metric vocabularies name cook_tpu_torch; R1 runs over
+    # scheduler/resident.py too and follows calls across modules
+    # (trace_purity.py, R1, is rewritten for the port: host syncs, not
+    # jax.jit purity)
+    "analysis/__init__.py": [
+        ('"""cookcheck: repo-native static analysis for cook_tpu.',
+         '"""cookcheck: repo-native static analysis for cook_tpu_torch.'),
+        ("""  R1  trace-purity    host syncs / impurities inside functions reached
+                      from ``jax.jit`` in ``ops/`` and ``parallel/``
+""",
+         """  R1  host syncs      device reads on the host (``.item()``,
+                      ``bool(t)``, pageable uploads, ...) inside
+                      functions reached from the port's device entry
+                      points in ``ops/``, ``parallel/`` and
+                      ``scheduler/resident.py``
+"""),
+        ("""Run ``python -m cook_tpu.analysis --help`` for the CLI; see
+``docs/static-analysis.md`` for rule details, the per-line suppression
+syntax (``# cookcheck: disable=R2``) and the baseline workflow.""",
+         """Run ``python -m cook_tpu_torch.analysis --help`` for the CLI; see
+``docs/static-analysis.md`` for rule details, the per-line suppression
+syntax (``# cookcheck: disable=R2``) and the baseline workflow (R1's
+are in ``trace_purity.py``'s docstring; the port's baseline is
+``cook_tpu_torch/analysis/baseline.json``)."""),
+        ("""The package is pure-stdlib AST analysis: it never imports jax, numpy,
+or any cook_tpu runtime module, so it runs anywhere Python runs.""",
+         """The package is pure-stdlib AST analysis: it never imports torch, jax,
+numpy, anything of cook_tpu or any cook_tpu_torch runtime module, so it
+runs anywhere Python runs."""),
+    ],
+    "analysis/__main__.py": [
+        ("    python -m cook_tpu.analysis [paths...] [--strict] [--rules R1,R2]",
+         "    python -m cook_tpu_torch.analysis [paths...] [--strict] [--rules R1,R2]"),
+        ("""With no paths, scans the cook_tpu package of the repo the module was
+imported from.""",
+         """With no paths, scans the cook_tpu_torch package of the repo the
+module was imported from, against the package's own baseline
+(cook_tpu_torch/analysis/baseline.json)."""),
+        ('''            if "cook_tpu/analysis" in rel.replace(os.sep, "/"):
+                continue
+            if rel in seen:
+                continue
+            seen.add(rel)
+            with open(fp, encoding="utf-8") as f:''',
+         '''            if "cook_tpu_torch/analysis" in rel.replace(os.sep, "/"):
+                continue
+            if rel in seen:
+                continue
+            seen.add(rel)
+            with open(fp, encoding="utf-8") as f:'''),
+        ('''            if "cook_tpu/analysis" in rel.replace(os.sep, "/"):
+                continue
+            if rel in seen:
+                continue
+            seen.add(rel)
+            with open(fp, encoding="utf-8") as fh:''',
+         '''            if "cook_tpu_torch/analysis" in rel.replace(os.sep, "/"):
+                continue
+            if rel in seen:
+                continue
+            seen.add(rel)
+            with open(fp, encoding="utf-8") as fh:'''),
+        ('        prog="python -m cook_tpu.analysis",',
+         '        prog="python -m cook_tpu_torch.analysis",'),
+        ('        description="cookcheck: trace-purity (R1), lock discipline (R2), "',
+         '        description="cookcheck: host syncs (R1), lock discipline (R2), "'),
+        ('''                    help="files or directories (default: the cook_tpu "
+                         "package)")''',
+         '''                    help="files or directories (default: the "
+                         "cook_tpu_torch package)")'''),
+        ('''                    default=os.path.join(_REPO_ROOT,
+                                         "analysis_baseline.json"),
+                    help="baseline file (default: analysis_baseline.json "
+                         "at the repo root)")''',
+         '''                    default=os.path.join(_PKG_ROOT, "analysis",
+                                         "baseline.json"),
+                    help="baseline file (default: the package's "
+                         "analysis/baseline.json)")'''),
+    ],
+    "analysis/core.py": [
+        ('''    "R1": ("ops", "parallel"),
+''',
+         '''    "R1": ("ops", "parallel", "resident.py"),
+'''),
+        ('''                   apply_suppressions: bool = True) -> list[Finding]:
+    """Run the per-module AST rules over one source text."""
+''',
+         '''                   apply_suppressions: bool = True,
+                   r1_reach: Optional[dict] = None) -> list[Finding]:
+    """Run the per-module AST rules over one source text. `r1_reach`
+    ({path: function names}, from trace_purity.reach over the scanned
+    files) lets R1 follow calls into other modules."""
+'''),
+        ('''        findings += trace_purity.check(mod)
+''',
+         '''        findings += trace_purity.check(
+            mod, None if r1_reach is None else r1_reach.get(path, set()))
+'''),
+        ('''    from cook_tpu_torch.analysis import rest_drift
+    findings: list[Finding] = []
+''',
+         '''    from cook_tpu_torch.analysis import rest_drift, trace_purity
+    findings: list[Finding] = []
+    # R1 follows calls across modules: its reach over every file it
+    # runs on, before the per-module pass
+    r1_files = []
+    if "R1" in rules:
+        for path in paths:
+            explicit_file = os.path.isfile(path)
+            for fp in iter_py_files(path):
+                rel = os.path.relpath(fp, root)
+                if "cook_tpu_torch/analysis" in rel.replace(os.sep, "/"):
+                    continue
+                if explicit_file or "R1" in _rules_for(rel, rules):
+                    with open(fp, encoding="utf-8") as f:
+                        r1_files.append((rel, f.read()))
+    r1_reach = trace_purity.reach(r1_files) if r1_files else None
+'''),
+        ('''            if "cook_tpu/analysis" in rel.replace(os.sep, "/"):
+                continue
+            active''',
+         '''            if "cook_tpu_torch/analysis" in rel.replace(os.sep, "/"):
+                continue
+            active'''),
+        ('''                findings += analyze_source(src, rel, active,
+                                           apply_suppressions)
+''',
+         '''                findings += analyze_source(src, rel, active,
+                                           apply_suppressions, r1_reach)
+'''),
+    ],
+    "analysis/interproc.py": [
+        (":func:`cook_tpu.utils.lockwitness.witness_lock` (the analyzer reads the",
+         ":func:`cook_tpu_torch.utils.lockwitness.witness_lock` (the analyzer reads the"),
+        ('''                      "cook_tpu.utils.lockwitness.witness_lock",
+                      "cook_tpu.utils.lockwitness.witness_condition"}''',
+         '''                      "cook_tpu_torch.utils.lockwitness.witness_lock",
+                      "cook_tpu_torch.utils.lockwitness.witness_condition"}'''),
+        ("# Repo-native by design: this is cook_tpu's own vocabulary.",
+         "# Repo-native by design: this is cook_tpu_torch's own vocabulary."),
+        ('''    if "cook_tpu" in parts:
+        parts = parts[parts.index("cook_tpu"):]''',
+         '''    if "cook_tpu_torch" in parts:
+        parts = parts[parts.index("cook_tpu_torch"):]'''),
+    ],
+    "analysis/lock_discipline.py": [
+        ('''    "cook_tpu.utils.lockwitness.witness_lock",
+    "cook_tpu.utils.lockwitness.witness_condition",''',
+         '''    "cook_tpu_torch.utils.lockwitness.witness_lock",
+    "cook_tpu_torch.utils.lockwitness.witness_condition",'''),
+    ],
+    "analysis/lock_order.py": [
+        ("Built on the interprocedural model (:mod:`cook_tpu.analysis.interproc`):",
+         "Built on the interprocedural model (:mod:`cook_tpu_torch.analysis.interproc`):"),
+    ],
+    "analysis/metrics_discipline.py": [
+        ('    for mod in ("cook_tpu.obs.metrics", "cook_tpu.utils.metrics")',
+         '    for mod in ("cook_tpu_torch.obs.metrics", "cook_tpu_torch.utils.metrics")'),
+    ],
+    "analysis/retry_discipline.py": [
+        ("`cook_tpu.utils.retry.RetryPolicy` is the one retry loop in the repo:",
+         "`cook_tpu_torch.utils.retry.RetryPolicy` is the one retry loop in the port:"),
+        ("`cook_tpu/utils/retry.py` itself is exempt by path",
+         "`cook_tpu_torch/utils/retry.py` itself is exempt by path"),
+    ],
+    "analysis/witness.py": [
+        ("The runtime lock-witness (:mod:`cook_tpu.utils.lockwitness`) writes one",
+         "The runtime lock-witness (:mod:`cook_tpu_torch.utils.lockwitness`) writes one"),
+    ],
 }
 
-# whole lines replaced, by file and line number: two comments drop the
+# whole lines replaced, by file and line number: comments drop the
 # number of the change that introduced them
 LINES = {
+    "analysis/interproc.py": {
+        5: "found so far (the day-soak pair, the sizing hangs) spanned"},
     "obs/decisions.py": {
         4: "job's fate — ranked out, quota-gated, unplaceable, matched "
            "— and this"},
@@ -173,10 +354,11 @@ def test_every_host_module_of_the_port_is_listed():
     ones)."""
     ported = {"scheduler/coordinator.py", "scheduler/resident.py",
               "parallel/federation.py", "rest/server.py",
-              "sim/__init__.py", "sim/__main__.py"}
+              "sim/__init__.py", "sim/__main__.py",
+              "analysis/trace_purity.py"}
     for sub in ("utils", "chaos", "state", "native", "obs", "backends",
                 "scheduler", "rest", "plugins", "agent", "sim", "cli",
-                "client", "integrations"):
+                "client", "integrations", "analysis"):
         for f in (PORT / sub).rglob("*"):
             rel = f.relative_to(PORT).as_posix()
             if f.suffix in (".py", ".cpp") and "__pycache__" not in rel:
@@ -186,9 +368,6 @@ def test_every_host_module_of_the_port_is_listed():
 # the reference's modules with no counterpart of the same path in the
 # port, and why
 UNPORTED = {
-    # the static checker; its rule R1 is about jax.jit purity: still to
-    # port, with R1 re-aimed at host syncs in the port's device functions
-    "analysis/*": "still to port",
     # the two Pallas kernels: the hand-written CUDA kernels of csrc/
     # behind ops/fused_match.py
     "ops/pallas_match.py": "ops/fused_match.py and csrc/",
@@ -209,5 +388,6 @@ def test_every_module_of_the_reference_has_a_counterpart():
         missing.add(f"{top}/*" if f"{top}/*" in UNPORTED else rel)
     assert missing == set(UNPORTED)
     assert (PORT / "ops/fused_match.py").exists()
+    assert (PORT / "analysis/trace_purity.py").exists()
     assert {"exact_scan.cu", "best_host.cu"} <= {
         f.name for f in (PORT / "csrc").glob("*.cu")}

@@ -242,6 +242,15 @@ BENCH_TOY = {
                "--C", "256", "--total-jobs", "10000"],
     "e2e-smoke": ["--P0", "1200", "--H", "48", "--U", "12", "--cycles", "3",
                   "--warmup", "1", "--consider", "64"],
+    "ingest": ["--n-single", "10", "--n-conc", "40", "--n-bulk", "2048"],
+    "fleet-worker": [],
+}
+# a mode's environment (the fleet member's scale, as bench.py's: 4
+# cycles, the first untimed)
+BENCH_TOY_ENV = {
+    "fleet-worker": {"FLEET_BENCH_P0": "500", "FLEET_BENCH_H": "50",
+                     "FLEET_BENCH_U": "20", "FLEET_BENCH_CYCLES": "4",
+                     "FLEET_BENCH_WARMUP": "1"},
 }
 # bench.py's other bench_e2e modes at the same toy shape (their own
 # settings; the cycle counts cut)
@@ -257,6 +266,7 @@ def test_bench_torch_runs_on_cpu_without_jax(mode):
     measured), and no jax or cook_tpu module in the process."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["PYTHONPATH"] = str(ROOT)
+    env.update(BENCH_TOY_ENV.get(mode, {}))
     proc = subprocess.run(
         [sys.executable, "-c", _BENCH_CHILD, mode, "--device", "cpu",
          *BENCH_TOY[mode]], cwd=str(ROOT), env=env, capture_output=True,
@@ -266,7 +276,18 @@ def test_bench_torch_runs_on_cpu_without_jax(mode):
     assert lines[-1] == "BAD []", lines[-1]
     out = json.loads(lines[-2])
     assert out["device"] == {"platform": "cpu"} and out["card"] is None
-    if mode == "rebalance":
+    if mode == "ingest":
+        assert out["acked_total"] == 10 + 40 + 2048
+        assert out["durability_check"]["acked_all_durable"]
+        assert out["durability_check"]["replayed"] == 2098
+    elif mode == "fleet-worker":
+        assert out["metric"] == "sched decisions/sec, fleet member 0"
+        assert out["cycles"] == 3 and out["pools"] == 1
+        assert out["durability_check"]["acked_all_durable"]
+        assert out["durability_check"]["state_hash_match"]
+        assert out["kernel_launches"]["exact_scan"] == 0
+        assert len(out["launch_digests"]) == 4 + 1
+    elif mode == "rebalance":
         for k in ("value", "placed", "preempted", "capped8192_ms",
                   "capped8192_preempted"):
             assert out[k] is not None, k
@@ -319,7 +340,8 @@ def test_bench_torch_runs_on_cpu_without_jax(mode):
 
 @pytest.mark.parametrize("mode", ["contended", "stream", "e2e-small",
                                   "e2e-smoke", "e2e-batched", "e2e-async",
-                                  "longevity", "longevity-async"])
+                                  "longevity", "longevity-async", "ingest",
+                                  "fleet", "fleet-worker"])
 def test_bench_torch_mode_raises_without_cuda(mode):
     """Without a card and without `--device cpu` a mode raises before
     any work and prints no result line: there is no fallback."""
