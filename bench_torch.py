@@ -33,8 +33,8 @@ its device entry points on one NVIDIA GPU.
                                         Coordinator.match_cycle over a
                                         durable store of 100k pending jobs
                                         and 10k mock hosts with real
-                                        launch transactions (560 cycles
-                                        after 15 of warm-up); --consider
+                                        launch transactions (560 cycles,
+                                        the first 15 untimed); --consider
                                         8192 takes match_rounds,
                                         --pipeline-depth and
                                         --async-consumer as bench_e2e's
@@ -42,7 +42,8 @@ its device entry points on one NVIDIA GPU.
                            longevity|longevity-async
                                         bench.py's other bench_e2e modes
                                         with its settings: 20k x 2k, 60
-                                        cycles; the same with 4 pools x 4
+                                        cycles (10 untimed); the same
+                                        with 4 pools x 4
                                         store shards, depth 2, native
                                         consume and the durability check
                                         (E2E_SMOKE_POOLS / _SHARDS /
@@ -79,6 +80,33 @@ its device entry points on one NVIDIA GPU.
                                         _CYCLES / _WARMUP / _SHARDS, as
                                         bench.py; fleet's members
                                         inherit them)
+    python3 bench_torch.py failover [SEED]
+                                        bench.py::bench_failover: an HA
+                                        pair of the port's servers
+                                        (`python -m
+                                        cook_tpu_torch.rest.server
+                                        --device cuda`) over one durable
+                                        store, 3 SIGKILLs of whoever
+                                        leads, 24 jobs on 3 agents, seed
+                                        31; worst and median MTTR against
+                                        the 20,000 ms ceiling, each
+                                        incarnation's device and the
+                                        survivors' launches; exits
+                                        non-zero on any gate breach
+    python3 bench_torch.py decision-overhead|trace-overhead [PATH]|
+                           profile-overhead [PATH]|chaos-overhead
+                                        bench.py's e2e overhead A/Bs:
+                                        bench_e2e at 20k x 2k, 120 cycles
+                                        (20 untimed) an arm, off and on
+                                        in one process (decision
+                                        provenance, twice; the tracer,
+                                        its Chrome trace to PATH; the
+                                        profiler's commit, its 16 worst
+                                        cycles to PATH; the chaos sites
+                                        armed at probability 0); the
+                                        overhead against a 2% budget
+                                        (`overhead_ok`, reported: these
+                                        modes exit 0 whatever it reads)
 
 Each mode draws bench.py's seeded inputs in bench.py's order, runs on the
 card (`--device cpu` with smaller `--R/--P/--H/--U/--C/--T0` runs the
@@ -655,12 +683,16 @@ def bench_rebalance(T0=50_000, P=64, H=2_000, U=500, sweeps=7,
 def bench_e2e(P0=100_000, H=10_000, U=500, cycles=560, warmup=15,
               consider=None, pipeline_depth=None, async_consumer=False,
               label=None, durability_check=False, device="cuda",
-              digests=False, **knobs):
-    """bench.py::bench_e2e on the port (cook_tpu_torch/e2e.py); `knobs`
-    are bench_e2e's others (pools, store_shards, runtime_s, rotate_lines,
-    sequential_threshold, native), e2e.Workload's defaults where not
-    given. With `digests` the line also has `launch_digests`. Returns
-    the printed line."""
+              digests=False, decision_provenance=None, stats_out=None,
+              **knobs):
+    """bench.py::bench_e2e on the port (cook_tpu_torch/e2e.py): `cycles`
+    bench cycles in all, the first `warmup` untimed, as bench.py counts
+    them; `knobs` are bench_e2e's others (pools, store_shards,
+    runtime_s, rotate_lines, sequential_threshold, native), e2e.Workload's
+    defaults where not given; `decision_provenance` sets the
+    coordinator's (None: its default, on), and `stats_out`, a dict, is
+    updated with the printed line, as bench.py's. With `digests` the
+    line also has `launch_digests`. Returns the printed line."""
     import torch
     from cook_tpu_torch import e2e
     from cook_tpu_torch.device import resolve_device
@@ -675,6 +707,7 @@ def bench_e2e(P0=100_000, H=10_000, U=500, cycles=560, warmup=15,
     w = e2e.Workload(P0=P0, H=H, U=U, consider=consider,
                      pipeline_depth=pipeline_depth,
                      async_consumer=async_consumer, device=dev,
+                     decision_provenance=decision_provenance,
                      **{k: v for k, v in knobs.items() if v is not None})
     setup_s = time.perf_counter() - t0
     e2e.apply_gc_discipline()
@@ -710,8 +743,8 @@ def bench_e2e(P0=100_000, H=10_000, U=500, cycles=560, warmup=15,
                 label or f"e2e coordinator @ {_count(P0)}-pending x "
                          f"{_count(H)}-offers"),
             **s,
-            "p99_method": f"p99 of {cycles} per-cycle host-clock times of "
-                          "a bench cycle (every pool's "
+            "p99_method": f"p99 of {cycles - warmup} per-cycle host-clock "
+                          "times of a bench cycle (every pool's "
                           "Coordinator.match_cycle: drain, ship, dispatch, "
                           "the device cycle, readback, launch txn, backend "
                           "launch)",
@@ -763,6 +796,8 @@ def bench_e2e(P0=100_000, H=10_000, U=500, cycles=560, warmup=15,
             out["launch_digests"] = launch_digests(w.launched, marks)
         if dev.type == "cuda":
             torch.cuda.synchronize()
+        if stats_out is not None:
+            stats_out.update(out)
         print(json.dumps(out), flush=True)
         return out
     finally:
@@ -780,6 +815,248 @@ def launch_digests(launched, marks) -> list:
         text = "\n".join(f"{u} {h}" for u, h in sorted(launched[lo:hi]))
         out.append(hashlib.sha256(text.encode()).hexdigest()[:16])
         lo = hi
+    return out
+
+
+# bench.py's four e2e overhead A/Bs: bench_e2e at 20k pending x 2k
+# hosts (U = 500), 120 cycles of which the first 20 untimed, both arms
+# in one process, against a 2% budget of decisions/s
+AB_SHAPE = dict(P0=20_000, H=2_000, U=500)
+AB_CYCLES, AB_WARMUP, AB_BUDGET_PCT = 120, 20, 2.0
+
+
+def _ab_arm(name, mode, shape, cycles, warmup, device, **kw) -> dict:
+    """One arm of an A/B: bench_e2e (which prints its own line) at
+    `shape`; returns that line."""
+    stats = {}
+    bench_e2e(label=f"{name} [{mode}] @ {_count(shape['P0'])}-pending x "
+                    f"{_count(shape['H'])}-offers", stats_out=stats,
+              cycles=cycles, warmup=warmup, device=device, **shape, **kw)
+    return stats
+
+
+def _ab_line(what, unit, runs, off, on, arms, shape, cycles, warmup,
+             device, **extra) -> dict:
+    """bench.py's A/B line: the overhead of arm `on` against arm `off`
+    in % decisions/s, the 2% budget, each arm's decisions/s and p99,
+    then `extra`; beside them each arm's kernel launches (`arms`: arm
+    name -> its bench_e2e line), the shape and the card."""
+    from cook_tpu_torch.device import resolve_device
+
+    dps_off, dps_on = float(runs[off]["value"]), float(runs[on]["value"])
+    overhead = ((dps_off - dps_on) / dps_off * 100.0) if dps_off else 0.0
+    return {
+        "metric": f"{what}, e2e @ {_count(shape['P0'])}-pending x "
+                  f"{_count(shape['H'])}-offers",
+        "value": round(overhead, 2),
+        "unit": unit,
+        "budget_pct": AB_BUDGET_PCT,
+        "overhead_ok": overhead <= AB_BUDGET_PCT,
+        f"decisions_per_sec_{off}": dps_off,
+        f"decisions_per_sec_{on}": dps_on,
+        f"p99_cycle_ms_{off}": runs[off]["p99_cycle_ms"],
+        f"p99_cycle_ms_{on}": runs[on]["p99_cycle_ms"],
+        **extra,
+        "kernel_launches": {a: line["kernel_launches"]
+                            for a, line in arms.items()},
+        "shape": dict(shape), "cycles": cycles, "warmup": warmup,
+        **device_fields(resolve_device(device)),
+    }
+
+
+def bench_decision_overhead(cycles=AB_CYCLES, warmup=AB_WARMUP, rounds=2,
+                            device="cuda", **shape):
+    """bench.py::bench_decision_overhead on the port: the
+    decision-provenance readback (the why rows on the prefix readback
+    and their recording in the DecisionBook and the metrics registry)
+    off and on, interleaved for `rounds` rounds; each arm publishes its
+    best run (bench.py:1449-1453: one run cannot resolve a 2% signal on
+    this path). Returns the printed line."""
+    from cook_tpu_torch.utils.metrics import registry
+
+    def decisions_recorded():
+        return sum(v["value"] for k, v in registry.snapshot().items()
+                   if k.startswith("decisions_total"))
+
+    shape = {**AB_SHAPE, **shape}
+    runs, recorded, arms = {}, {}, {}
+    for r in range(rounds):
+        for mode, enabled in (("disabled", False), ("enabled", True)):
+            before = decisions_recorded()
+            stats = _ab_arm("decision-overhead", f"{mode} r{r}", shape,
+                            cycles, warmup, device,
+                            decision_provenance=enabled)
+            arms[f"{mode} r{r}"] = stats
+            if mode not in runs or \
+                    float(stats["value"]) > float(runs[mode]["value"]):
+                runs[mode] = stats
+            recorded[mode] = decisions_recorded() - before
+    out = _ab_line(
+        "decision provenance overhead",
+        "% decisions/sec lost with provenance readback enabled", runs,
+        "disabled", "enabled", arms, shape, cycles, warmup, device,
+        # the disabled arm records nothing, the enabled every
+        # considered job (the last round's)
+        decisions_recorded_disabled=recorded["disabled"],
+        decisions_recorded_enabled=recorded["enabled"], rounds=rounds)
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def bench_trace_overhead(out_path=None, cycles=AB_CYCLES, warmup=AB_WARMUP,
+                         device="cuda", **shape):
+    """bench.py::bench_trace_overhead on the port: the obs tracer (the
+    flight recorder's per-cycle spans) off, then on; the on arm's
+    flight recorder exported as Chrome-trace JSON to `out_path`
+    (default: cook_trace.json in the temp directory). Returns the
+    printed line."""
+    import tempfile
+
+    from cook_tpu_torch import obs
+
+    out_path = out_path or os.path.join(tempfile.gettempdir(),
+                                        "cook_trace.json")
+    shape = {**AB_SHAPE, **shape}
+    runs = {}
+    try:
+        for mode, enabled in (("disabled", False), ("enabled", True)):
+            obs.tracer.reset()
+            obs.tracer.enabled = enabled
+            runs[mode] = _ab_arm("trace-overhead", mode, shape, cycles,
+                                 warmup, device)
+        # the enabled run's spans, newest first (Perfetto sorts by ts)
+        flight = obs.tracer.recent(2048)
+        with open(out_path, "w") as f:
+            json.dump(obs.to_chrome_trace(flight), f)
+        ring_stats = obs.tracer.stats()
+    finally:
+        obs.tracer.enabled = True   # the process-wide default
+    out = _ab_line(
+        "obs tracing overhead", "% decisions/sec lost with tracing enabled",
+        runs, "disabled", "enabled", runs, shape, cycles, warmup, device,
+        flight_spans_exported=len(flight), chrome_trace=out_path,
+        chrome_trace_note="flight-recorder cycle spans with phase "
+                          "children; open in Perfetto or "
+                          "chrome://tracing",
+        tracer=ring_stats)
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def bench_profile_overhead(out_path=None, cycles=AB_CYCLES,
+                           warmup=AB_WARMUP, device="cuda", **shape):
+    """bench.py::bench_profile_overhead on the port: the cycle
+    profiler's commit off, then on; the 16 worst cycles exported as
+    Chrome-trace JSON to `out_path` (default: cook_profile.json in the
+    temp directory); and bench.py's cross-check: the consume phase the
+    profiler's means name dominant is the one with the largest
+    bench-measured mean, or within 20% of it in both ledgers. Returns
+    the printed line."""
+    import tempfile
+
+    from cook_tpu_torch import obs
+
+    out_path = out_path or os.path.join(tempfile.gettempdir(),
+                                        "cook_profile.json")
+    shape = {**AB_SHAPE, **shape}
+    runs = {}
+    try:
+        for mode, enabled in (("disabled", False), ("enabled", True)):
+            obs.profiler.reset()
+            obs.profiler.enabled = enabled
+            runs[mode] = _ab_arm("profile-overhead", mode, shape, cycles,
+                                 warmup, device)
+        snap = obs.profiler.snapshot()
+        with open(out_path, "w") as f:
+            json.dump(obs.profiler.chrome_trace(16), f)
+    finally:
+        obs.profiler.enabled = True   # the process-wide default
+    on = runs["enabled"]
+    bench_equiv = {
+        "readback": float(on["readback_mean_ms"]),
+        "fold": float(on["phase_means_ms"]["consume_fold_ms"]),
+        "frame": float(on["phase_means_ms"]["consume_frame_ms"]),
+        "launch_txn": float(on["phase_means_ms"]["launch_txn_ms"]),
+        "backend_launch": float(on["phase_means_ms"]["backend_launch_ms"]),
+    }
+    dominant_bench = max(bench_equiv, key=bench_equiv.get)
+    consume = (snap.get("kinds") or {}).get("consume") or {}
+    prof_phases = consume.get("phases") or {}
+
+    def pmean(name):
+        return float((prof_phases.get(name) or {}).get("mean_ms", 0.0))
+
+    prof_equiv = {
+        "readback": pmean("readback"), "fold": pmean("fold"),
+        "frame": pmean("frame"), "launch_txn": pmean("launch_txn"),
+        "backend_launch": pmean("bookkeep") + pmean("backend_launch"),
+    }
+    dominant_prof = max(prof_equiv, key=prof_equiv.get) \
+        if any(prof_equiv.values()) else ""
+    blame_dominant = consume.get("dominant", "")
+    if blame_dominant == "bookkeep":
+        blame_dominant = "backend_launch"
+    # bench.py's tie rule: two phases within 20% of each other in both
+    # ledgers (the bench's means leave out the warm-up, the profiler's
+    # ring keeps it) are a tie, and either name is dominant
+    dominant_match = dominant_prof == dominant_bench
+    if not dominant_match and dominant_prof and dominant_bench:
+        a = (bench_equiv[dominant_prof], bench_equiv[dominant_bench])
+        b = (prof_equiv[dominant_prof], prof_equiv[dominant_bench])
+        dominant_match = min(a) > 0.8 * max(a) and min(b) > 0.8 * max(b)
+    out = _ab_line(
+        "cycle profiler overhead",
+        "% decisions/sec lost with profiler commit enabled", runs,
+        "disabled", "enabled", runs, shape, cycles, warmup, device,
+        dominant_phase_profiler=dominant_prof,
+        dominant_phase_bench=dominant_bench,
+        dominant_match=dominant_match,
+        bench_phase_means_ms={k: round(v, 2) for k, v in bench_equiv.items()},
+        profiler_phase_means_ms={k: round(v, 2)
+                                 for k, v in prof_equiv.items()},
+        blame_dominant=blame_dominant, blame=consume.get("blame", {}),
+        committed=snap.get("committed", 0), chrome_trace=out_path,
+        chrome_trace_note="16 worst cycles with phase children; open in "
+                          "Perfetto or chrome://tracing")
+    print(json.dumps(out), flush=True)
+    return out
+
+
+# bench.py's armed chaos sites: probability 0 on the store's hot path,
+# so every draw walks the ladder (lock, rng, event ring) and injects
+# nothing
+CHAOS_BENIGN = {"store.append": {"delay": 0.0},
+                "store.fsync": {"delay": 0.0}}
+
+
+def bench_chaos_overhead(cycles=AB_CYCLES, warmup=AB_WARMUP, device="cuda",
+                         **shape):
+    """bench.py::bench_chaos_overhead on the port: the chaos controller
+    disarmed (the production default), then armed with CHAOS_BENIGN; it
+    ends disarmed. Returns the printed line."""
+    from cook_tpu_torch import chaos
+
+    shape = {**AB_SHAPE, **shape}
+    runs = {}
+    try:
+        for mode in ("disabled", "armed"):
+            chaos.controller.reset()
+            if mode == "armed":
+                chaos.controller.configure(seed=7, sites=CHAOS_BENIGN)
+            runs[mode] = _ab_arm("chaos-overhead", mode, shape, cycles,
+                                 warmup, device)
+        armed = chaos.controller.stats()
+        # the event ring records every draw: the armed run drew
+        armed_draws = len(chaos.controller.events_snapshot())
+    finally:
+        chaos.controller.reset()    # never leave the process armed
+    out = _ab_line(
+        "chaos hooks overhead",
+        "% decisions/sec lost with chaos armed (benign sites)", runs,
+        "disabled", "armed", runs, shape, cycles, warmup, device,
+        armed_draws=armed_draws, armed_stats=armed,
+        armed_after=chaos.controller.enabled)
+    print(json.dumps(out), flush=True)
     return out
 
 
@@ -947,8 +1224,7 @@ def fleet_worker(device="cuda"):
     has the launch digests. Returns the printed line."""
     env = fleet_scale()
     return bench_e2e(P0=env["P0"], H=env["H"], U=env["U"],
-                     cycles=env["CYCLES"] - env["WARMUP"],
-                     warmup=env["WARMUP"], durability_check=True, pools=1,
+                     cycles=env["CYCLES"], warmup=env["WARMUP"], durability_check=True, pools=1,
                      store_shards=env["SHARDS"], device=device,
                      digests=True,
                      label=f"fleet member "
@@ -1074,6 +1350,162 @@ def bench_fleet(groups=4, device="cuda", timeout_s=1800):
     return out
 
 
+# the leader-failover soak (bench.py:1990-2043): bench.py's scale, its
+# MTTR ceiling and default seed
+FAILOVER = dict(jobs=24, agents=3, window_s=10.0, wall_s=240.0, kills=3,
+                partitions=1)
+FAILOVER_CEILING_MS, FAILOVER_SEED = 20_000.0, 31
+
+
+def failover_gates(r, kills=0, ceiling_ms=FAILOVER_CEILING_MS) -> list:
+    """The gates tests/test_federation_soak.py::_assert_gates asserts
+    on a failover soak's evidence `r`, as a list of the breaches (empty
+    when every gate holds): no violation; every job completed with
+    success; no task launched twice nor logged twice; epochs strictly
+    increasing, one mint a kill at least; `kills` kill transitions, each
+    advancing the epoch within `ceiling_ms`; no frozen leader deposed;
+    with kills, instances under two epochs and the stale-epoch fence
+    rejecting and counted."""
+    from cook_tpu_torch.chaos.churn import LEADER_KILL, LEADER_PARTITION
+
+    bad = []
+    if r["violations"]:
+        bad.append(f"in-flight violations: {r['violations']}")
+    if len(r["jobs"]) != r["expected_jobs"]:
+        bad.append(f"lost jobs: {len(r['jobs'])}/{r['expected_jobs']}")
+    for j in r["jobs"].values():
+        if j.status != "completed" or j.state != "success":
+            bad.append(f"{j.uuid} ended {j.status} / {j.state}")
+    doubled = {t: n for t, n in r["launch_counts"].items() if n > 1}
+    if doubled:
+        bad.append(f"double-launched task_ids: {doubled}")
+    seen: dict = {}
+    for rec in r["inst_tasks"]:
+        seen[rec["task"]] = seen.get(rec["task"], 0) + 1
+    dup = {t: n for t, n in seen.items() if n > 1}
+    if dup:
+        bad.append(f"duplicate inst records in the shared log: {dup}")
+    eps = r["epochs"]
+    if not all(a < b for a, b in zip(eps, eps[1:])):
+        bad.append(f"epoch ledger not strictly increasing: {eps}")
+    if len(eps) < 1 + kills:
+        bad.append(f"{len(eps)} epoch mints, wanted >= {1 + kills}")
+    kill_ts = [t for t in r["transitions"] if t["action"] == LEADER_KILL]
+    if len(kill_ts) != kills:
+        bad.append(f"{len(kill_ts)} kill transitions, wanted {kills}")
+    for t in kill_ts:
+        if t["epoch_after"] <= t["epoch_before"]:
+            bad.append(f"takeover without epoch advance: {t}")
+        if t["mttr_ms"] > ceiling_ms:
+            bad.append(f"failover took {t['mttr_ms']} ms: {t}")
+    for t in r["transitions"]:
+        if t["action"] == LEADER_PARTITION and t["epoch_after"] and \
+                t["epoch_after"] > t["epoch_before"] and not kills:
+            bad.append(f"frozen leader deposed: {t}")
+    if kills:
+        if len({rec["ep"] for rec in r["inst_tasks"]}) < 2:
+            bad.append("inst epoch stamps never crossed a takeover")
+        sf = r["stale_fence"]
+        if not (sf and sf["rejected"]):
+            bad.append(f"stale-epoch fence proof missing or failed: {sf}")
+        elif sf["counter_delta"] < 1:
+            bad.append(f"rejection counter never moved: {sf}")
+    return bad
+
+
+def bench_failover(seed=FAILOVER_SEED, device="cuda", **scale):
+    """bench.py::bench_failover on the port: an HA pair of the port's
+    servers (tests/torch_fedsoak.py, each `python -m
+    cook_tpu_torch.rest.server --device <device>`) over one durable
+    store, SIGKILLs of whoever leads, kill -> takeover visible timed per
+    transition, at bench.py's FAILOVER scale unless `scale` says
+    otherwise. bench.py's line and gate (every kill timed under the
+    ceiling, every job completed, the stale-epoch fence rejected, no
+    violation), and beside them the soak's other gates
+    (`failover_gates`), each server incarnation's device (all on
+    `device`) and each survivor's kernel launches (on the card,
+    exact_scan launched). CHAOS_ARTIFACTS_DIR keeps the store and the
+    artifacts. Returns the printed line; its `ok` is false on any
+    breach."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from cook_tpu_torch.device import resolve_device
+    from tests.torch_fedsoak import run_failover_soak
+    from tests.torch_livestack import incarnations
+
+    dev = resolve_device(device)
+    build_s = _prepare(dev)
+    # the servers run `python -m cook_tpu_torch.rest.server` from this
+    # checkout, wherever the caller's working directory is
+    here = os.path.dirname(os.path.abspath(__file__))
+    paths = [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+             if p]
+    if here not in paths:
+        os.environ["PYTHONPATH"] = os.pathsep.join([here] + paths)
+    scale = {**FAILOVER, **scale}
+    kills = scale["kills"]
+    tmp = Path(tempfile.mkdtemp(prefix="cook_failover_"))
+    try:
+        t0 = time.monotonic()
+        r = run_failover_soak(tmp / "store", seed, device=dev.type,
+                              **scale)
+        wall_s = time.monotonic() - t0
+        incs = {n: incarnations(tmp / "store" / f"server-{n}.log")
+                for n in ("a", "b")}
+    finally:
+        if not os.environ.get("CHAOS_ARTIFACTS_DIR"):
+            shutil.rmtree(tmp, ignore_errors=True)
+    mttrs = sorted(t["mttr_ms"] for t in r["transitions"]
+                   if t["action"] == "leader_kill")
+    completed = sum(1 for j in r["jobs"].values()
+                    if j.status == "completed")
+    fence = r["stale_fence"]
+    gates = failover_gates(r, kills)
+    devices = [i["device"] for v in incs.values() for i in v]
+    on_device = bool(devices) and all(
+        d.split(":")[0] == dev.type for d in devices)
+    survivors = [i for v in incs.values() for i in v
+                 if i["kernel_launches"] is not None]
+    scan = sum(i["kernel_launches"]["exact_scan"] for i in survivors)
+    launched = dev.type != "cuda" or scan > 0
+    # the gates hold every term of bench.py's ok but the one that wants
+    # a timed takeover (a soak without kills passes them)
+    ok = bool(mttrs) and not gates and on_device and launched
+    out = {
+        "metric": "leader failover MTTR, kill -> takeover visible",
+        "value": mttrs[-1] if mttrs else None,
+        "unit": f"ms worst of {len(mttrs)} takeovers "
+                f"(ceiling {FAILOVER_CEILING_MS:.0f})",
+        "ok": ok,
+        "seed": seed,
+        "wall_s": round(wall_s, 1),
+        "mttr_ms_median": mttrs[len(mttrs) // 2] if mttrs else None,
+        "mttr_ms_all": mttrs,
+        "epochs": r["epochs"],
+        "violations": r["violations"],
+        "stale_fence": fence,
+        "completed": completed,
+        "expected_jobs": r["expected_jobs"],
+        "gate_breaches": gates,
+        "server_deaths": r["server_deaths"],
+        "incarnations": {n: [{"pid": i["pid"], "device": i["device"]}
+                             for i in v] for n, v in incs.items()},
+        "incarnations_on_device": on_device,
+        "survivor_exact_scan_launches": [
+            i["kernel_launches"]["exact_scan"] for i in survivors],
+        "survivor_kernel_launches": [
+            {k: v for k, v in i["kernel_launches"].items() if v}
+            for i in survivors],
+        "scale": scale,
+        "build_s": build_s,
+        **device_fields(dev),
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def _last_json(text: str) -> dict:
     return json.loads([ln for ln in text.splitlines()
                        if ln.startswith("{")][-1])
@@ -1097,6 +1529,18 @@ MODES = {
     "ingest": dict(n_single=2_000, n_conc=8_000, n_bulk=30_000),
     "fleet": {},
     "fleet-worker": {},
+    "failover": {},
+    "decision-overhead": dict(AB_SHAPE),
+    "trace-overhead": dict(AB_SHAPE),
+    "profile-overhead": dict(AB_SHAPE),
+    "chaos-overhead": dict(AB_SHAPE),
+}
+# the four e2e overhead A/Bs (bench.py:1268-1547)
+AB_MODES = {
+    "decision-overhead": bench_decision_overhead,
+    "trace-overhead": bench_trace_overhead,
+    "profile-overhead": bench_profile_overhead,
+    "chaos-overhead": bench_chaos_overhead,
 }
 # bench.py main()'s settings of bench_e2e for each e2e mode
 E2E_MODES = {
@@ -1144,6 +1588,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("mode", nargs="?", default="headline",
                     choices=sorted(MODES))
+    ap.add_argument("arg", nargs="?", default=None,
+                    help="bench.py's argv[2]: failover's seed (31); "
+                         "trace-overhead's and profile-overhead's "
+                         "Chrome-trace path (cook_trace.json / "
+                         "cook_profile.json in the temp directory)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
     for k in ("R", "P", "H", "U", "C", "T0", "P0"):
@@ -1151,12 +1600,14 @@ def main(argv=None):
     ap.add_argument("--total-jobs", type=int, default=None,
                     help="stream: jobs to place (default 1,000,000)")
     ap.add_argument("--cycles", type=int, default=None,
-                    help="timed cycles (default 120; pools 30; e2e modes "
+                    help="timed cycles (default 120; pools 30); e2e modes "
+                         "and the A/Bs: cycles in all, the first --warmup "
+                         "untimed, as bench.py counts them (default "
                          "bench.py's: 560, e2e-small/-smoke 60, longevity "
-                         "8400)")
+                         "8400, the A/Bs 120 an arm)")
     ap.add_argument("--warmup", type=int, default=None,
-                    help="e2e warm-up cycles (default bench.py's: 15, "
-                         "e2e-small/-smoke 10)")
+                    help="e2e and A/B warm-up cycles (default bench.py's: "
+                         "15, e2e-small/-smoke 10, the A/Bs 20)")
     ap.add_argument("--consider", type=int, default=None,
                     help="e2e max_jobs_considered (8192: match_rounds)")
     ap.add_argument("--pipeline-depth", type=int, default=None)
@@ -1180,6 +1631,9 @@ def main(argv=None):
         if given:
             ap.error(f"{a.mode} takes its scale from FLEET_BENCH_* only, "
                      f"not --{', --'.join(given)}")
+    if a.arg is not None and a.mode not in ("failover", "trace-overhead",
+                                            "profile-overhead"):
+        ap.error(f"{a.mode} takes no positional argument")
     shape = dict(MODES[a.mode])
     for k in shape:
         v = getattr(a, k)
@@ -1198,6 +1652,18 @@ def main(argv=None):
     elif a.mode == "fleet":
         if not bench_fleet(groups=a.groups, device=a.device)["ok"]:
             sys.exit(1)
+    elif a.mode == "failover":
+        seed = FAILOVER_SEED if a.arg is None else int(a.arg)
+        if not bench_failover(seed=seed, device=a.device)["ok"]:
+            sys.exit(1)
+    elif a.mode in AB_MODES:
+        # like bench.py's, an A/B reports overhead_ok and exits 0
+        # whatever it reads
+        kw = {"cycles": AB_CYCLES if a.cycles is None else a.cycles,
+              "warmup": AB_WARMUP if a.warmup is None else a.warmup}
+        if a.arg is not None:
+            kw["out_path"] = a.arg
+        AB_MODES[a.mode](**shape, device=a.device, **kw)
     elif a.mode == "rebalance":
         bench_rebalance(**shape, sweeps=a.sweeps, device=a.device)
     elif a.mode == "pools":

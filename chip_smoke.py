@@ -141,7 +141,7 @@
    (its usage: T > 32,768) and sum_ordered (one CTA, or past 262,144 its
    cluster) twice a step, no route beyond them, place a job, and make no
    host sync before its readback (sync debug mode); the exact and the
-   300k sweeps are also timed and their launches a step counted with the
+   300k sweeps are also profiled, timed and their launches a step counted with the
    calls routed as before the cluster routes (ordered_scatter/sorted,
    sum_ordered/levels), in turns with the new routes; the same sweep
    with every wrapper routed
@@ -149,8 +149,8 @@
    preempted and bit-equal spares, and launch no kernel; the 50k sweeps
    must also equal the same call on the host CPU (the plain versions
    there are what the CPU tests hold equal to the JAX package). Prints
-   each sweep's CUDA-event and host-clock ms, device busy ms, launches
-   and host syncs; then the usage scatter alone at its shapes (50,064
+   each sweep's CUDA-event and host-clock ms and host syncs (device busy
+   ms and launches of the profiled two); then the usage scatter alone at its shapes (50,064
    and 300,064 x 501 x 2, ordered_scatter's cluster route) against its
    plain version and the sorted route, timed in turns (sorted, cluster,
    cluster, sorted, twice) beside float `index_add_`, with the device
@@ -175,10 +175,11 @@
    rounds as the same run on the port's CPU path (its plain versions):
    E2E_AGREE cycles, and batched more, up to E2E_AGREE_MAX, until one
    ran a dense round; best_host must launch once per dense round there.
-   The first difference fails. Then E2E_CYCLES (20; 100 before the
-   server phases came, 40 before the mesh phase, 30 before the cluster
-   routes' checks and timings; cut to make room for them; at 10 the
-   batched run reached no dense round) cycles after E2E_WARMUP,
+   The first difference fails. Then E2E_CYCLES cycles in all, the
+   first E2E_WARMUP untimed, as bench.py counts them (25 and 5: 20
+   timed; 100 timed before the server phases came, 40 before the mesh
+   phase, 30 before the cluster routes' checks and timings; cut to make
+   room for them; at 10 timed the batched run reached no dense round),
    with bench_e2e's 19 status shards and without its durable log: each
    cycle must launch exact_scan once and, batched, best_host once per
    dense round its match_rounds ran (none sequentially); the segment
@@ -209,15 +210,20 @@
    SERVER_CYCLES (20) resident cycles have launched jobs. exact_scan
    must launch once a cycle, each cycle launch 1,024 while the backlog
    lasts, no job launch twice, and
-   every launched job read running or success through GET /jobs/<uuid>.
+   every launched job read running or success through GET /jobs
+   (SERVER_GET_BATCH uuids of one user a request: one GET /jobs/<uuid>
+   a job took ~88 s of this phase on a slower host of the chip tool).
    Prints the ingest rate (first POST to last 201) and the host-clock
    p50 / p99 of the cycles and of the profiler's phases (drain, ship,
    dispatch, queue_wait; readback, fold, frame, launch_txn, bookkeep,
-   backend_launch). Then the same at max_jobs_considered 8,192 until
+   backend_launch). Then the same at max_jobs_considered 8,192 with the
+   first SERVER_BATCHED_P (30,000; 100,000 before phase 15 came, cut to
+   make room for it, so its ingest rate is over 30,000 jobs and does
+   not compare with the earlier 100,000-job figure) of those jobs until
    best_host has launched, best_host once per dense round: the window
-   rounds place the unconstrained jobs (on these identical hosts, all of
-   them until the cluster fills), the constrained ones only the head and
-   the dense rounds. Then a deterministic run of the
+   rounds place the unconstrained jobs (the 10,000 hosts fill at
+   neither backlog), the constrained ones only the head and the dense
+   rounds. Then a deterministic run of the
    C = 1,024 server (clocks and uuids pinned, the backlog through
    CookApi.handle in order, pipeline depth 0, statuses inline, cycles
    driven by hand) on the card and on the CPU path: SERVER_AGREE cycles
@@ -275,8 +281,8 @@
    - stream (BASELINE config 5): 1,000,000 jobs placed, 32 cycles a
      read, jobs/s and the host syncs a cycle;
    - e2e-smoke (the reference's CI gate): 20k pending x 2k hosts, 4
-     pools x 4 store shards, depth 2, native consume, 30 cycles after
-     10, the 4 pools' match_cycles from 4 threads: acked_all_durable
+     pools x 4 store shards, depth 2, native consume, 15 cycles of
+     which 5 untimed, the 4 pools' match_cycles from 4 threads: acked_all_durable
      and state_hash_match must be true and exact_scan launch for every
      pool's cycle; then a deterministic run of BENCH_SMOKE_AGREE cycles
      with the pools concurrent must launch each pool's (job uuid, host)
@@ -284,7 +290,7 @@
      both durable;
    - e2e-batched (sequential_threshold 512: C = 1,024 through
      match_rounds) at bench_e2e's 100k x 10k, BENCH_BATCHED_CYCLES
-     cycles: exact_scan once a cycle at least.
+     cycles (12) of which 4 untimed: exact_scan once a cycle at least.
 13. The runtime around the server, each leg on the card through
    exact_scan, each failing the run on any miss or past its deadline:
    - agents: the server (`build_scheduler` in this process on the card,
@@ -293,7 +299,8 @@
      served by an ApiServer) and 64 agents of 32 cpus and 131,072 MB
      registered one by one in a fixed order: 4 `python -m
      cook_tpu_torch.agent` processes, then 60 in-process AgentDaemons.
-     2,000 `true` jobs (1 cpu, 64 MB) of 20 users are POSTed through
+     1,536 `true` jobs (1 cpu, 64 MB; 2,000 before phase 15) of 20
+     users are POSTed through
      JobClient in bulk and AGENTS_AGREE cycles driven by hand, clocks
      and uuids pinned, each waiting until its tasks ended (the first
      under the profiler: launches, device busy and idle share; the
@@ -314,11 +321,12 @@
      launches elsewhere, launches and syncs a cycle, the idle share.
    - kube: the server with one cluster of kind "kube" whose kube_url is
      the port's ApiServerStandIn over 256 nodes (8 cpus, 32 GB),
-     KubeletSim binding, starting and finishing the pods (1 s): 2,000
-     jobs POSTed through JobClient must all succeed, exact_scan launch.
+     KubeletSim binding, starting and finishing the pods (1 s): 1,000
+     jobs (2,000 before phase 15) POSTed through JobClient must all
+     succeed, exact_scan launch.
    - failover: two servers on the card (`python -m
-     cook_tpu_torch.rest.server --device cuda`, run through runpy by a
-     wrapper that prints its launch counters on SIGTERM) race for a
+     cook_tpu_torch.rest.server --device cuda`, each writing its
+     launch counters to its log on SIGTERM) race for a
      Lease on the port's stand-in and share one durable log; one agent
      process (8 cpus) carries both URLs. 24 `sleep 1` jobs go to the
      leader; once 8 run it is SIGKILLed; the standby must take the
@@ -353,7 +361,36 @@
      Prints the aggregate and single-leader decisions/s and the
      speedup; the scale gate is bench_torch.py fleet's, not this
      script's.
-15. Prints timings as JSON: per cycle CUDA events from the delta upload
+15. The leader-failover soak and bench.py's four e2e overhead A/Bs,
+   through bench_torch.py's functions (soak_phase; ~60-150 s):
+   - failover: tests/test_federation_soak.py's QUICK tier (6 jobs, 2
+     agents, a 4 s window, 1 SIGKILL and 1 SIGSTOP of whoever leads,
+     seed 31) over an HA pair of `python -m cook_tpu_torch.rest.server
+     --device cuda` processes sharing one durable store
+     (tests/torch_fedsoak.py through the port's ServerSupervisor): every
+     gate of _assert_gates (no lost or doubled job, strictly increasing
+     epochs, the stale-epoch fence, the takeover under 20,000 ms), every
+     server incarnation on the card, exact_scan launched by a survivor
+     (each writes its launches to its log on SIGTERM);
+   - decision-, trace-, profile- and chaos-overhead at 20k pending x 2k
+     hosts, 12 cycles an arm of which 4 untimed (decision-overhead one
+     round): each toggle must take (decisions recorded off 0 and on
+     more; flight spans exported as JSON; profiler cycles committed;
+     armed chaos draws, the controller disarmed after) and each arm
+     launch exact_scan. The overhead percentages are printed and never
+     gate (one run cannot resolve a 2% budget here, bench.py:1449-1453).
+   Cut for it: phase 9's C = 8,192 backlog (100,000 jobs to 30,000),
+   phase 11's timed calls (3 to 2), phase 12's e2e-smoke (40 cycles in
+   all to 25) and e2e-batched (35 to 20), phase 13's agent jobs (2,000
+   to 1,536) and kube jobs (2,000 to 1,000). Then, after the whole
+   smoke outran the 1,200 s limit on a slower host of the chip tool
+   (1,212 s there, 996 s on another): phase 12's e2e-smoke (25 to 15)
+   and e2e-batched (20 to 12), phase 6's profiled sweeps (5 to the 2
+   it also times on the earlier routes), phase 11's sharded resident
+   cycles (4 to 2), phase 9's job-state reads (batched by user), and
+   the CPU path's runs of phases 5b-10 made beside the card's phases
+   (below).
+16. Prints timings as JSON: per cycle CUDA events from the delta upload
    to the prefix readback, and the host clock around the whole cycle
    (including the workload's own bookkeeping); each kernel alone by CUDA
    events, exact_scan also at its dependency floor (S=1024 with one warp
@@ -365,6 +402,18 @@
    one line {"kernels": [...]} (every kernel and route the paths
    launched, with its launches by path), the nvidia-smi line,
    and last {"ok": true, "device": {...}}.
+
+The runs on the port's CPU path that phases 5b-10 hold the card against
+(5b's agreement cycles, 6's 50k sweeps, 7's deterministic runs, 8's coordinator
+paths, 9's deterministic server cycles, 10's simulator) are made in one
+child process started before the build (`chip_smoke.py --cpu-refs DIR`,
+no card visible, 4 threads), while the card runs the phases before
+them: the same calls on the same seeded inputs, compared the same way
+once each phase needs its run (class CpuRefs; the child ends with the
+smoke).
+
+`python3 chip_smoke.py --stack-samples FILE` also writes the main
+thread's stack to FILE once a second (sample_stacks).
 
 Imports torch, numpy and cook_tpu_torch only. Any failure exits non-zero
 before the last line.
@@ -432,7 +481,8 @@ E2E_SHAPE = dict(P0=100_000, H=10_000, U=500)
 E2E_AGREE = 4
 E2E_AGREE_MAX = 64
 E2E_READBACK_CYCLES = 13
-E2E_CYCLES = 20
+# cycles in all, the first E2E_WARMUP untimed (bench.py's sense)
+E2E_CYCLES = 25
 E2E_WARMUP = 5
 E2E_MATCHERS = (("sequential", None), ("batched", C_BATCHED))
 # the server (rest/server.py build_scheduler at bench_e2e's size): the
@@ -441,10 +491,14 @@ E2E_MATCHERS = (("sequential", None), ("batched", C_BATCHED))
 # they may take); batched cycles' seconds to wait for a dense round;
 # deterministic cycles held against the CPU path
 SERVER_P, SERVER_H, SERVER_U = 100_000, 10_000, 500
+# the C = 8,192 server's backlog: the first of the same jobs
+SERVER_BATCHED_P = 30_000
 # a share of the jobs carries a rack constraint (as phase 4's pool
 # constrains 2%), over racks the smoke labels the mock hosts with
 SERVER_CONSTRAINED, SERVER_RACKS = 0.02, 50
 SERVER_BATCH, SERVER_CLIENTS = 1_000, 8
+# uuids a GET /jobs request reads back
+SERVER_GET_BATCH = 200
 SERVER_INTERVAL_S = 0.05
 # 30 cycles until the analysis phase came (cut to make room for it)
 SERVER_CYCLES, SERVER_MAX_S = 20, 240
@@ -461,8 +515,10 @@ SIM_JOBS, SIM_USERS, SIM_HOSTS = 5000, 20, 200
 PAR_SHARDS = 4
 PAR_SCAN_C, PAR_SCAN_H, PAR_GROUPS = 1024, 10_000, 4
 PAR_POOLS = dict(n_pools=8, R=1_250, P=12_500, H=1_250, U=100, C=1_024)
-PAR_RESIDENT_CYCLES = 4
-PAR_TIMED = 3
+# (4 until the whole smoke outran its limit on a slower host)
+PAR_RESIDENT_CYCLES = 2
+# 3 before phase 15 came (cut to make room for it)
+PAR_TIMED = 2
 # the grouped and locality cells: the headline deployment with 10% of
 # pending jobs in host-placement-unique groups of 8 (Spark executors;
 # G = bucket(~1,250 groups) = 2,048) or 20% with a data-locality bonus
@@ -476,10 +532,14 @@ GROUP_G = (4, 64, 2048)
 # (bench.py:2219-2224) at the headline width, stream (BASELINE config 5,
 # 1,000,000 jobs), e2e-smoke (the reference's CI gate: 20k pending x 2k
 # hosts, 4 pools x 4 store shards, depth 2, native consume, the
-# durability check; BENCH_SMOKE_CYCLES after 10: 60 before the cluster
-# routes' timings, cut for the time limit) and e2e-batched
-# (sequential_threshold 512 at bench_e2e's 100k x 10k,
-# BENCH_BATCHED_CYCLES after 5: cut from 560 for the time limit)
+# durability check; BENCH_SMOKE_CYCLES in all, the first
+# BENCH_SMOKE_WARMUP untimed: 60 timed before the cluster routes'
+# timings, 30 before phase 15, 15 until the whole smoke outran the
+# 1,200 s limit on a slower host, cut for the time limit) and
+# e2e-batched (sequential_threshold 512 at bench_e2e's 100k x 10k,
+# BENCH_BATCHED_CYCLES in all, the first BENCH_BATCHED_WARMUP untimed:
+# 560 timed cut to 30, to 15 for phase 15, then to 8). Cycle counts are
+# bench.py's: in all, the warm-up included
 BENCH_CONTENDED = dict(R=10_000, P=100_000, H=10_000, U=500, C=8_192)
 BENCH_CONTENDED_CYCLES = 30
 # the contended mix at bench.py's `small` shape, where the hosts are
@@ -490,12 +550,12 @@ BENCH_STREAM_JOBS = 1_000_000
 BENCH_SMOKE = dict(P0=20_000, H=2_000, U=500)
 BENCH_SMOKE_KNOBS = dict(pools=4, store_shards=4, pipeline_depth=2,
                          native=True)
-BENCH_SMOKE_CYCLES, BENCH_SMOKE_WARMUP = 30, 10
+BENCH_SMOKE_CYCLES, BENCH_SMOKE_WARMUP = 15, 5
 # concurrent pools against pools in turn: through the first completions
 # (jobs run 10 s of the mock's clock, one a cycle)
 BENCH_SMOKE_AGREE = 13
 BENCH_BATCHED = dict(P0=100_000, H=10_000, U=500)
-BENCH_BATCHED_CYCLES, BENCH_BATCHED_WARMUP = 30, 5
+BENCH_BATCHED_CYCLES, BENCH_BATCHED_WARMUP = 12, 4
 # phase 13: the fleet of agents (subprocesses, in-process daemons), each
 # AGENT_CPUS x AGENT_MEM; the backlog of `true` jobs from AGENTS_USERS,
 # the sleepers (one subprocess agent is killed under them), the jobs the
@@ -505,7 +565,9 @@ AGENT_TOKEN = "chip-smoke"
 AGENTS_SUB, AGENTS_INPROC = 4, 60
 AGENT_CPUS, AGENT_MEM = 32.0, 131_072.0
 AGENTS_C = 1_024
-AGENTS_JOBS, AGENTS_USERS = 2_000, 20
+# (2,000 jobs before phase 15 came: cut to make room for it; the second
+# hand-driven cycle still launches 512)
+AGENTS_JOBS, AGENTS_USERS = 1_536, 20
 AGENTS_SLEEPERS, AGENTS_SLEEP_S = 64, 3
 AGENTS_CLI_JOBS = 3
 AGENTS_AGREE = 2
@@ -513,7 +575,8 @@ AGENTS_LEASE_S, AGENTS_HEARTBEAT_S = 5.0, 0.5
 AGENTS_MAX_S = 240
 # the kube leg: the stand-in's nodes (8 cpus, 32 GB each: 2,048 1-cpu
 # slots), its jobs, KubeletSim's pod runtime
-KUBE_NODES, KUBE_JOBS, KUBE_RUNTIME_S, KUBE_MAX_S = 256, 2_000, 1.0, 180
+# (2,000 jobs before phase 15 came; cut to make room for it)
+KUBE_NODES, KUBE_JOBS, KUBE_RUNTIME_S, KUBE_MAX_S = 256, 1_000, 1.0, 180
 # the failover leg: the jobs (sleep 1, 1 cpu) on one agent of 8 cpus
 FAILOVER_JOBS, FAILOVER_AGENT_CPUS, FAILOVER_MAX_S = 24, 8.0, 240
 # phase 14: the ingest leg's jobs (bench.py's 2,000 / 8,000 / 30,000
@@ -522,6 +585,14 @@ FAILOVER_JOBS, FAILOVER_AGENT_CPUS, FAILOVER_MAX_S = 24, 8.0, 240
 ANALYSIS_INGEST = dict(n_single=200, n_conc=800, n_bulk=3_000)
 ANALYSIS_FLEET_GROUPS = 2
 ANALYSIS_FLEET_ENV = {"FLEET_BENCH_CYCLES": "10", "FLEET_BENCH_WARMUP": "3"}
+# phase 15: the failover soak at tests/test_federation_soak.py's QUICK
+# tier (seed 31, servers on the card), and bench.py's four e2e overhead
+# A/Bs at its 20k pending x 2k hosts, each arm SOAK_AB_CYCLES cycles in
+# all, the first SOAK_AB_WARMUP untimed (bench.py's arms: 120 and 20)
+SOAK_FAILOVER = dict(jobs=6, agents=2, window_s=4.0, wall_s=90.0, kills=1,
+                     partitions=1)
+SOAK_SEED = 31
+SOAK_AB_CYCLES, SOAK_AB_WARMUP = 12, 4
 # the port's files R1 covers when it scans the package
 R1_SCOPE = ("cook_tpu_torch/ops/", "cook_tpu_torch/parallel/",
             "cook_tpu_torch/scheduler/resident.py")
@@ -1031,6 +1102,30 @@ def group_routes(dev, cluster):
     return out
 
 
+def group_cells():
+    """Phase 5b's cells, (cell, knobs, C), named as group_cells_phase
+    names them."""
+    from cook_tpu_torch.entry import sequential_for
+    return [(f"{name}_{'sequential' if sequential_for(C) else 'batched'}",
+             knobs, C) for name, knobs in GROUP_CELLS
+            for C in (S_MAIN, C_BATCHED)]
+
+
+def group_cycle_outputs(out, mi, mh):
+    """What phase 5b holds the card to the CPU path on: a cycle's
+    mat_idx, mat_host and why_code."""
+    return {"mat_idx": np.asarray(mi).tolist(),
+            "mat_host": np.asarray(mh).tolist(),
+            "why_code": out[8].cpu().tolist()}
+
+
+def group_cpu_cycles(knobs, C):
+    """Phase 5b's first GROUP_AGREE cycles of a cell on the CPU path."""
+    from cook_tpu_torch.entry import resident_workload
+    wc = resident_workload(device="cpu", seed=0, C=C, **knobs)
+    return [group_cycle_outputs(*wc.cycle()) for _ in range(GROUP_AGREE)]
+
+
 def group_cells_phase(dev):
     """4b: the grouped and locality cells (module docstring). Returns
     ({cell: stats}, {cell: kernel launches of its timed cycles})."""
@@ -1050,16 +1145,13 @@ def group_cells_phase(dev):
             w = resident_workload(device=dev, seed=0, C=C, **knobs)
             torch.cuda.synchronize()
             setup_s = time.perf_counter() - t0
-            wc = resident_workload(device="cpu", seed=0, C=C, **knobs)
+            want, _ = CPU_REFS.get(f"group_{cell}")
             for c in range(GROUP_AGREE):
                 out, mi, mh = w.cycle()
-                outc, mic, mhc = wc.cycle()
-                if not (np.array_equal(mi, mic) and np.array_equal(mh, mhc)
-                        and torch.equal(out[8].cpu(), outc[8])):
+                if as_json(group_cycle_outputs(out, mi, mh)) != want[c]:
                     fail(f"{cell} cycle {c}: the card disagrees with the "
                          f"CPU path")
                 check_cycle_state(w, mi, c, cell)
-            del wc
             host_ms, event_ms, matched, groups = [], [], [], []
             per_cycle = []
             for c in range(GROUP_WARMUP):
@@ -1555,17 +1647,6 @@ def check_cycle_state(w, mat_idx, c, label):
         fail(f"{label} cycle {c}: a matched row is still valid")
 
 
-def _to_cpu(x):
-    """x with every tensor (in tuples, named tuples and dicts) on the
-    CPU."""
-    if isinstance(x, dict):
-        return {k: _to_cpu(v) for k, v in x.items()}
-    if isinstance(x, tuple):
-        items = [_to_cpu(v) for v in x]
-        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
-    return x.cpu() if hasattr(x, "cpu") else x
-
-
 def _first_difference(names, got, want):
     """The name of the first of two results' tensors that differ (floats
     by their bits), or None."""
@@ -1577,6 +1658,26 @@ def _first_difference(names, got, want):
         if not torch.equal(g, w):
             return name
     return None
+
+
+def tensor_bits(xs):
+    """Each tensor of `xs` as [dtype, its values] (floats by their
+    bits), for holding results against a run in another process."""
+    import torch
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return [[str(x.dtype), (x.view(ints[x.element_size()])
+                            if x.is_floating_point() else x).tolist()]
+            for x in xs]
+
+
+def rebalance_cpu_run(T0, gpu, cap):
+    """Phase 6's sweep on the host CPU (tensor_bits of its result)."""
+    from cook_tpu_torch.entry import rebalance_args
+    from cook_tpu_torch.ops import rebalance as reb
+    args, kw = rebalance_args(T0, REB_P, REB_H, REB_U, gpu=gpu,
+                              device="cpu")
+    return tensor_bits(reb.rebalance(*args, REB_SAFE_DRU, REB_MIN_DRU_DIFF,
+                                     candidate_cap=cap, **kw))
 
 
 def rebalance_phase(dev):
@@ -1639,9 +1740,12 @@ def rebalance_phase(dev):
         if syncs:
             fail(f"rebalance {label}: the sweep synchronised the host "
                  f"before its readback: {syncs}")
-        _, kernels, _, wall_ms = profile_calls(sweep, 1)
+        # profiled (launches, device busy) only where the routes before
+        # the cluster's are timed too: the profiler's summary of a sweep
+        # (thousands of events) takes ~8 s on the host
         parent = label in REB_PARENT_VARIANTS
         if parent:
+            _, kernels, _, wall_ms = profile_calls(sweep, 1)
             with parent_routes():
                 parent_kernels = profile_calls(sweep, 1)[1]
 
@@ -1680,27 +1784,24 @@ def rebalance_phase(dev):
         # orders are held to the reference's too
         cpu_s = None
         if T0 <= REB_CPU_MAX_T0:
-            t = time.perf_counter()
-            on_cpu = reb.rebalance(*_to_cpu(args), REB_SAFE_DRU,
-                                   REB_MIN_DRU_DIFF, candidate_cap=cap,
-                                   **_to_cpu(kw))
-            cpu_s = time.perf_counter() - t
-            bad = _first_difference(res._fields, got, on_cpu)
+            on_cpu, cpu_s = CPU_REFS.get(f"rebalance_{label}")
+            bad = next((name for name, g, w in zip(
+                res._fields, tensor_bits(got), on_cpu) if g != w), None)
             if bad:
                 fail(f"rebalance {label}: {bad} on the card differs from "
                      f"the CPU's")
-        busy = sum(k[1] for k in kernels)
         out[label] = {
             "T0": T0, "gpu_mode": gpu, "candidate_cap": cap,
             "placed": int(got[0].sum()), "preempted": int(got[2].sum()),
             "sweep_event_ms": float(np.median(events)),
             "sweep_event_ms_runs": events,
             "sweep_host_ms_counted": host_ms,
-            "device_busy_ms": busy,
-            "device_idle_share": 1.0 - busy / wall_ms if wall_ms else None,
-            "launches_per_sweep": sum(k[2] for k in kernels),
-            "launches_per_step": sum(k[2] for k in kernels) / REB_P,
-            **({"parent_routes_launches_per_step":
+            **({"device_busy_ms": sum(k[1] for k in kernels),
+                "device_idle_share": 1.0 - sum(k[1] for k in kernels)
+                / wall_ms if wall_ms else None,
+                "launches_per_sweep": sum(k[2] for k in kernels),
+                "launches_per_step": sum(k[2] for k in kernels) / REB_P,
+                "parent_routes_launches_per_step":
                 sum(k[2] for k in parent_kernels) / REB_P,
                 "parent_routes_sweep_event_ms": float(np.median(
                     parent_events)),
@@ -1712,6 +1813,15 @@ def rebalance_phase(dev):
             "setup_s": setup_s}
         print(json.dumps({f"rebalance_{label}": out[label]}), flush=True)
     return out, launches
+
+
+def e2e_agreement_run(device, consider):
+    """Phase 7's deterministic run of one matcher: E2E_AGREE cycles, and
+    batched on until one ran a dense round, up to E2E_AGREE_MAX."""
+    from cook_tpu_torch import e2e
+    return e2e.launch_trace(device, E2E_AGREE, consider=consider,
+                            until_dense=E2E_AGREE_MAX if consider else 0,
+                            **E2E_SHAPE)
 
 
 def _first_launch_difference(got, want, names=("card", "CPU path")) -> str:
@@ -1782,13 +1892,11 @@ def e2e_phase(dev):
         # batched, the card's run goes on past E2E_AGREE cycles until
         # one has run a dense round (best_host), up to E2E_AGREE_MAX
         before = dict(fm.LAUNCHES)
-        card_run = e2e.launch_trace(
-            dev, E2E_AGREE, consider=consider,
-            until_dense=E2E_AGREE_MAX if consider else 0, **E2E_SHAPE)
+        card_run = e2e_agreement_run(dev, consider)
         agree_bh = fm.LAUNCHES["best_host"] - before["best_host"]
         k = len(card_run["dense_rounds"])
-        cpu_run = e2e.launch_trace("cpu", k, consider=consider,
-                                   **E2E_SHAPE)
+        card_run = as_json(card_run)
+        cpu_run, cpu_s = CPU_REFS.get(f"e2e_{name}")
         agree_s = time.perf_counter() - t0
         for c, (g, h) in enumerate(zip(card_run["per_cycle"],
                                        cpu_run["per_cycle"])):
@@ -1848,7 +1956,7 @@ def e2e_phase(dev):
             _, kernels, _, prof_wall = profile_calls(one_cycle, 1)
             sources = sync_sources(one_cycle)
             busy = sum(k[1] for k in kernels)
-            n_cycles = E2E_WARMUP + E2E_CYCLES
+            n_cycles = E2E_CYCLES
             s = e2e.summary(r)
             results[name] = {
                 "C": min(consider or 1024, w.rp.Pcap), **E2E_SHAPE,
@@ -1856,7 +1964,8 @@ def e2e_phase(dev):
                 "agreement_launches_per_cycle": agreed,
                 "agreement_dense_rounds": card_run["dense_rounds"],
                 "agreement_best_host_launches": agree_bh,
-                "agreement_s": agree_s, "setup_s": setup_s,
+                "agreement_s": agree_s, "agreement_cpu_path_s": cpu_s,
+                "setup_s": setup_s,
                 "seed_submit_s": w.seed_s,
                 "p50_cycle_ms": s["p50_cycle_ms"],
                 "p99_cycle_ms": s["p99_cycle_ms"],
@@ -1907,10 +2016,10 @@ def paths_phase(dev):
 
     t0 = time.perf_counter()
     before = dict(fm.LAUNCHES)
-    card = e2e.device_paths(dev)
+    card = as_json(e2e.device_paths(dev))
     launched = {k: fm.LAUNCHES[k] - before[k] for k in before}
     card_s = time.perf_counter() - t0
-    cpu = e2e.device_paths("cpu")
+    cpu, _ = CPU_REFS.get("paths")
     for a, b in zip(card, cpu):
         if a != b:
             what = a[:4] if a[0] == "cycle" else a[:2]
@@ -2045,8 +2154,9 @@ def _pct(xs):
             if xs else None)
 
 
-def run_server(dev, consider, until, max_s, check=None):
-    """Build phase 9's server at `consider`, take the backlog over HTTP
+def run_server(dev, consider, until, max_s, check=None, n=SERVER_P):
+    """Build phase 9's server at `consider`, take the backlog of `n` jobs
+    over HTTP
     (an ApiServer, the ingest batcher), start the cycle threads and run
     until `until(entries)` holds for the profiler's committed cycle
     records (fails after `max_s` seconds of cycles), then stop the
@@ -2063,7 +2173,7 @@ def run_server(dev, consider, until, max_s, check=None):
     from cook_tpu_torch.rest.server import (ApiServer, apply_gc_discipline,
                                             build_scheduler)
     tmp = tempfile.mkdtemp(prefix="cook_smoke_server_")
-    reqs = server_requests()
+    reqs = server_requests(n)
     store, coord, api = build_scheduler(server_config(tmp, consider),
                                         device=dev)
     label_racks(coord)
@@ -2072,7 +2182,7 @@ def run_server(dev, consider, until, max_s, check=None):
     stopped = False
     try:
         ingest_s = post_http(server.url, reqs)
-        if len(store.jobs) != SERVER_P:
+        if len(store.jobs) != n:
             fail(f"server ingest: {len(store.jobs)} jobs in the store")
         apply_gc_discipline()
         obs.profiler.add_listener(entries.append)
@@ -2107,23 +2217,34 @@ def run_server(dev, consider, until, max_s, check=None):
 
 
 def get_states(url, jobs, ok, clients=SERVER_CLIENTS):
-    """GET /jobs/<uuid> for each (uuid, user) from `clients` threads;
-    the (uuid, state) pairs whose state is not in `ok`."""
+    """GET /jobs?uuid=...&uuid=... for each user's jobs of `jobs`, (uuid,
+    user) pairs, up to SERVER_GET_BATCH uuids a request, from `clients`
+    threads; the (uuid, state) pairs whose state is not in `ok` (a job
+    the answer lacks reads None)."""
     import threading
+    import urllib.parse
     import urllib.request
+    by_user = {}
+    for u, user in jobs:
+        by_user.setdefault(user, []).append(u)
+    reqs = [(user, us[i:i + SERVER_GET_BATCH])
+            for user, us in sorted(by_user.items())
+            for i in range(0, len(us), SERVER_GET_BATCH)]
     bad = []
 
     def worker(k):
-        for u, user in jobs[k::clients]:
-            r = urllib.request.Request(f"{url}/jobs/{u}",
+        for user, us in reqs[k::clients]:
+            q = urllib.parse.urlencode([("uuid", u) for u in us])
+            r = urllib.request.Request(f"{url}/jobs?{q}",
                                        headers={"x-cook-user": user})
             try:
                 with urllib.request.urlopen(r, timeout=60) as f:
-                    state = json.loads(f.read())["state"]
+                    states = {j["uuid"]: j["state"]
+                              for j in json.loads(f.read())}
             except Exception as e:
-                state = repr(e)
-            if state not in ok:
-                bad.append((u, state))
+                states = dict.fromkeys(us, repr(e))
+            bad.extend((u, states.get(u)) for u in us
+                       if states.get(u) not in ok)
 
     threads = [threading.Thread(target=worker, args=(k,))
                for k in range(clients)]
@@ -2198,7 +2319,7 @@ def server_phase(dev):
 
     def launched_jobs_read_running(store, entries, url):
         # no job launched twice, and every launched job reads running
-        # or success through GET /jobs/<uuid>
+        # or success through GET /jobs
         done = sum(e["attrs"]["matched"] for e in _kinds(entries,
                                                           "consume"))
         launched = [(j.uuid, j.user) for j in store.jobs.values()
@@ -2267,7 +2388,8 @@ def server_phase(dev):
         from cook_tpu_torch.ops import fused_match as fm
         return fm.LAUNCHES["best_host"] >= 1
 
-    r = run_server(dev, C_BATCHED, dense_ran, SERVER_BATCHED_MAX_S)
+    r = run_server(dev, C_BATCHED, dense_ran, SERVER_BATCHED_MAX_S,
+                   n=SERVER_BATCHED_P)
     matches = _kinds(r["entries"], "match")
     b_launches = r["launches"]
     if b_launches["exact_scan"] != len(matches):
@@ -2279,8 +2401,8 @@ def server_phase(dev):
              f"{b_launches['best_host']} times in {r['dense_rounds']} "
              f"dense rounds")
     stats["batched"] = {
-        "C": C_BATCHED, "ingest_s": r["ingest_s"],
-        "ingest_jobs_per_s": SERVER_P / r["ingest_s"],
+        "C": C_BATCHED, "P": SERVER_BATCHED_P, "ingest_s": r["ingest_s"],
+        "ingest_jobs_per_s": SERVER_BATCHED_P / r["ingest_s"],
         "cycles": len(matches), "dense_rounds": r["dense_rounds"],
         "matched_per_cycle": [e["attrs"]["matched"] for e in
                               _kinds(r["entries"], "consume")],
@@ -2291,8 +2413,8 @@ def server_phase(dev):
 
     # the deterministic run on the card against the CPU path
     t0 = time.perf_counter()
-    got = server_agreement(dev, SERVER_AGREE)
-    want = server_agreement("cpu", SERVER_AGREE)
+    got = as_json(server_agreement(dev, SERVER_AGREE))
+    want, _ = CPU_REFS.get("server")
     for c, (g, w) in enumerate(zip(got, want)):
         if g != w:
             fail(f"server agreement cycle {c}: "
@@ -2317,6 +2439,26 @@ def _free_port():
     return port
 
 
+def simulate(device):
+    """Phase 10's simulator run: (run_trace_rows(), summary(), seconds)."""
+    from cook_tpu_torch import e2e
+    from cook_tpu_torch.sim import (SimConfig, Simulator, parse_hosts,
+                                    parse_trace)
+    from cook_tpu_torch.sim.gen import generate_hosts, generate_trace
+    cfg = SimConfig()
+    cfg.scheduler.rebalancer.safe_dru_threshold = 0.0
+    cfg.scheduler.rebalancer.min_dru_diff = 0.0
+    sim = Simulator(
+        parse_trace(generate_trace(n_jobs=SIM_JOBS, n_users=SIM_USERS,
+                                   seed=0)),
+        parse_hosts(generate_hosts(SIM_HOSTS)), cfg, device=device)
+    t = time.perf_counter()
+    with e2e.pinned_clocks():
+        summary = sim.run()
+        rows = sim.run_trace_rows()
+    return rows, summary, time.perf_counter() - t
+
+
 def operator_phase(dev):
     """10: `python -m cook_tpu_torch.rest.server` as operators start it,
     and the simulator on the card against the CPU path (see the module
@@ -2326,11 +2468,7 @@ def operator_phase(dev):
     import tempfile
     import urllib.request
     import uuid
-    from cook_tpu_torch import e2e
     from cook_tpu_torch.ops import fused_match as fm
-    from cook_tpu_torch.sim import (SimConfig, Simulator, parse_hosts,
-                                    parse_trace)
-    from cook_tpu_torch.sim.gen import generate_hosts, generate_trace
 
     here = os.path.dirname(os.path.abspath(__file__))
     tmp = tempfile.mkdtemp(prefix="cook_smoke_boot_")
@@ -2397,24 +2535,11 @@ def operator_phase(dev):
         shutil.rmtree(tmp, ignore_errors=True)
     boot["exit_code"] = proc.returncode
 
-    def simulate(device):
-        cfg = SimConfig()
-        cfg.scheduler.rebalancer.safe_dru_threshold = 0.0
-        cfg.scheduler.rebalancer.min_dru_diff = 0.0
-        sim = Simulator(
-            parse_trace(generate_trace(n_jobs=SIM_JOBS, n_users=SIM_USERS,
-                                       seed=0)),
-            parse_hosts(generate_hosts(SIM_HOSTS)), cfg, device=device)
-        t = time.perf_counter()
-        with e2e.pinned_clocks():
-            summary = sim.run()
-            rows = sim.run_trace_rows()
-        return rows, summary, time.perf_counter() - t
-
     fm.reset_launches()
     rows, summary, card_s = simulate(dev)
     sim_launches = dict(fm.LAUNCHES)
-    cpu_rows, cpu_summary, cpu_s = simulate("cpu")
+    rows, summary = as_json([rows, summary])
+    (cpu_rows, cpu_summary), cpu_s = CPU_REFS.get("simulator")
     if summary != cpu_summary:
         fail(f"simulator: summary on the card {summary} != CPU path "
              f"{cpu_summary}")
@@ -2907,7 +3032,7 @@ def bench_phase(dev):
     if not (dur["acked_all_durable"] and dur["state_hash_match"]):
         fail(f"e2e-smoke durability: {dur}")
     K = BENCH_SMOKE_KNOBS["pools"]
-    n_cycles = BENCH_SMOKE_CYCLES + BENCH_SMOKE_WARMUP
+    n_cycles = BENCH_SMOKE_CYCLES
     if launches["e2e_smoke"]["exact_scan"] < K * n_cycles or \
             launches["e2e_smoke"]["best_host"]:
         fail(f"e2e-smoke: launches {launches['e2e_smoke']} in {n_cycles} "
@@ -2952,7 +3077,7 @@ def bench_phase(dev):
         warmup=BENCH_BATCHED_WARMUP, sequential_threshold=512,
         label="e2e coordinator @ 100k-pending x 10k-offers, batched "
               "matcher", device=dev))
-    n_cycles = BENCH_BATCHED_CYCLES + BENCH_BATCHED_WARMUP
+    n_cycles = BENCH_BATCHED_CYCLES
     if line["sequential"] or \
             launches["e2e_batched"]["exact_scan"] < n_cycles:
         fail(f"e2e-batched: sequential {line['sequential']}, launches "
@@ -3414,21 +3539,6 @@ def kube_leg(dev, nodes=KUBE_NODES, jobs=KUBE_JOBS):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-# `python -m cook_tpu_torch.rest.server` with its arguments, which on
-# SIGTERM prints its kernels' launch counters and exits
-_COUNTED_SERVER = r"""
-import json, os, runpy, signal, sys
-def report(*_):
-    from cook_tpu_torch.ops import fused_match as fm
-    print("LAUNCHES " + json.dumps(fm.LAUNCHES), flush=True)
-    os._exit(0)
-signal.signal(signal.SIGTERM, report)
-sys.argv = ["cook_tpu_torch.rest.server"] + sys.argv[1:]
-runpy.run_module("cook_tpu_torch.rest.server", run_name="__main__",
-                 alter_sys=True)
-"""
-
-
 def failover_leg(dev_name="cuda"):
     """Two servers on the card race for a Lease on the port's stand-in
     and share one durable log; one agent carries both URLs. The leader
@@ -3441,6 +3551,7 @@ def failover_leg(dev_name="cuda"):
     import urllib.request
     from cook_tpu_torch.backends.kube.standin import ApiServerStandIn
     from cook_tpu_torch.client import JobClient
+    from tests.torch_livestack import incarnations
     here = os.path.dirname(os.path.abspath(__file__))
     tmp = tempfile.mkdtemp(prefix="cook_smoke_failover_")
     lease = ApiServerStandIn()
@@ -3471,8 +3582,8 @@ def failover_leg(dev_name="cuda"):
         logs.append(os.path.join(tmp, f"server{k}.log"))
         out = open(logs[-1], "wb")
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", _COUNTED_SERVER, "--device", dev_name,
-             "--config", cfg], cwd=tmp, env=_child_env(here), stdout=out,
+            [sys.executable, "-m", "cook_tpu_torch.rest.server", "--device",
+             dev_name, "--config", cfg], cwd=tmp, env=_child_env(here), stdout=out,
             stderr=subprocess.STDOUT))
         out.close()
 
@@ -3548,12 +3659,12 @@ def failover_leg(dev_name="cuda"):
             fail("failover: the survivor launched nothing")
         procs[standby].send_signal(signal.SIGTERM)
         procs[standby].wait(timeout=60)
-        counted = [ln for ln in _log_tail(logs[standby], 1 << 20).splitlines()
-                   if ln.startswith("LAUNCHES ")]
+        counted = [i["kernel_launches"] for i in incarnations(logs[standby])
+                   if i["kernel_launches"] is not None]
         if not counted:
-            fail("failover: the survivor printed no launch counts: "
+            fail("failover: the survivor wrote no launch counts: "
                  + _log_tail(logs[standby]))
-        launches = json.loads(counted[-1][len("LAUNCHES "):])
+        launches = counted[-1]
         if not launches["exact_scan"]:
             fail("failover: the survivor never launched exact_scan")
         return {"jobs": FAILOVER_JOBS, "agent_cpus": FAILOVER_AGENT_CPUS,
@@ -3747,6 +3858,231 @@ def analysis_phase(dev, traced_phases):
     return stats, launches
 
 
+def soak_phase(dev):
+    """15: the leader-failover soak and the four e2e overhead A/Bs,
+    through bench_torch.py's functions (each prints its mode's line).
+
+    The soak: bench_torch.bench_failover at SOAK_FAILOVER, an HA pair of
+    `python -m cook_tpu_torch.rest.server --device cuda` processes over
+    one durable store, the leader SIGKILLed once and frozen once. It
+    fails the run when a gate of tests/test_federation_soak.py's
+    _assert_gates breaks (bench_torch.failover_gates), when a server
+    incarnation ran on another device, when no survivor launched
+    exact_scan, or when a takeover took over 20,000 ms.
+
+    The A/Bs, each once at bench.py's shape with SOAK_AB_CYCLES cycles
+    an arm (decision-overhead: one round): the run fails when a toggle
+    did not take (provenance off recorded a decision, on recorded none;
+    no flight span exported, or an export that is not JSON; no profiler
+    cycle committed; no armed chaos draw, or the controller left armed)
+    or when an arm launched no exact_scan. The overhead percentages are
+    printed and never gate the run: one run cannot resolve bench.py's 2%
+    budget on this path (bench.py:1449-1453), so a gate on them would
+    fail at random. Returns (stats, launches by leg)."""
+    import shutil
+    import tempfile
+    import bench_torch
+    from cook_tpu_torch import chaos
+    from cook_tpu_torch.ops import fused_match as fm
+
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+    zero = {k: 0 for k in fm.LAUNCHES}
+
+    def total(lines):
+        got = dict(zero)
+        for line in lines:
+            for k, v in line.items():
+                got[k] += v
+        return got
+
+    t0 = time.perf_counter()
+    fo = bench_torch.bench_failover(seed=SOAK_SEED, device=dev.type,
+                                    **SOAK_FAILOVER)
+    if not fo["ok"]:
+        fail(f"failover soak: gate breaches {fo['gate_breaches'][:5]}, "
+             f"worst MTTR {fo['value']} ms, incarnations "
+             f"{fo['incarnations']} (all on {dev.type}: "
+             f"{fo['incarnations_on_device']}), survivors' exact_scan "
+             f"launches {fo['survivor_exact_scan_launches']}")
+    launches["soak_failover"] = total(fo["survivor_kernel_launches"])
+    out["failover"] = {k: fo[k] for k in (
+        "value", "mttr_ms_median", "mttr_ms_all", "epochs", "completed",
+        "expected_jobs", "server_deaths", "incarnations",
+        "survivor_exact_scan_launches", "wall_s")}
+    out["failover"]["leg_s"] = time.perf_counter() - t0
+
+    ab = dict(cycles=SOAK_AB_CYCLES, warmup=SOAK_AB_WARMUP, device=dev)
+    tmp = tempfile.mkdtemp(prefix="cook_smoke_ab_")
+    try:
+        t0 = time.perf_counter()
+        d = bench_torch.bench_decision_overhead(rounds=1, **ab)
+        if d["decisions_recorded_disabled"] != 0 or \
+                not d["decisions_recorded_enabled"]:
+            fail(f"decision-overhead: recorded "
+                 f"{d['decisions_recorded_disabled']} off, "
+                 f"{d['decisions_recorded_enabled']} on")
+        t1 = time.perf_counter()
+        path = os.path.join(tmp, "trace.json")
+        t = bench_torch.bench_trace_overhead(out_path=path, **ab)
+        try:
+            with open(path) as f:
+                json.load(f)
+        except (OSError, ValueError) as e:
+            fail(f"trace-overhead: the Chrome trace is not JSON: {e!r}")
+        if not t["flight_spans_exported"]:
+            fail("trace-overhead: no flight span exported")
+        t2 = time.perf_counter()
+        p = bench_torch.bench_profile_overhead(
+            out_path=os.path.join(tmp, "profile.json"), **ab)
+        if not p["committed"]:
+            fail("profile-overhead: no cycle committed")
+        t3 = time.perf_counter()
+        c = bench_torch.bench_chaos_overhead(**ab)
+        if not c["armed_draws"] or c["armed_after"] or \
+                chaos.controller.enabled:
+            fail(f"chaos-overhead: {c['armed_draws']} armed draws, armed "
+                 f"after: {c['armed_after'] or chaos.controller.enabled}")
+        t4 = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, line, s in (("decision", d, t1 - t0), ("trace", t, t2 - t1),
+                          ("profile", p, t3 - t2), ("chaos", c, t4 - t3)):
+        for arm, k in line["kernel_launches"].items():
+            if not k["exact_scan"]:
+                fail(f"{name}-overhead arm {arm}: exact_scan never "
+                     f"launched")
+        launches[f"ab_{name}"] = total(line["kernel_launches"].values())
+        out[f"{name}_overhead"] = {
+            # reported, never gated (bench.py:1449-1453)
+            "overhead_pct": line["value"],
+            "overhead_ok": line["overhead_ok"],
+            **{k: v for k, v in line.items()
+               if k.startswith(("decisions_per_sec", "p99_cycle_ms",
+                                "decisions_recorded"))},
+            "exact_scan_launches": {a: k["exact_scan"] for a, k in
+                                    line["kernel_launches"].items()},
+            "leg_s": s}
+    out["trace_overhead"]["flight_spans_exported"] = \
+        t["flight_spans_exported"]
+    out["profile_overhead"]["committed"] = p["committed"]
+    out["profile_overhead"]["dominant_match"] = p["dominant_match"]
+    out["chaos_overhead"]["armed_draws"] = c["armed_draws"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"soak": out}), flush=True)
+    return out, launches
+
+
+def as_json(x):
+    """`x` as the CPU references come back from their process (tuples as
+    lists), for comparing the card's runs with them."""
+    return json.loads(json.dumps(x))
+
+
+class CpuRefs:
+    """The runs on the port's CPU path that phases 5b to 10 hold the card
+    against, made in one child process (`chip_smoke.py --cpu-refs DIR`,
+    which sees no card) while the card runs the phases before them. Each
+    is the same call on the same seeded inputs that the phase made in
+    turn before; `get` waits for one and returns (result, seconds)."""
+
+    THREADS = 4
+    MAX_S = 900
+
+    def __init__(self):
+        self.proc = self.dir = None
+
+    @staticmethod
+    def runs():
+        """{name: the run}, in the order the phases need them."""
+        from cook_tpu_torch import e2e
+
+        def e2e_run(consider):
+            r = e2e_agreement_run("cpu", consider)
+            return {k: r[k] for k in ("per_cycle", "dense_rounds")}
+
+        runs = {f"group_{cell}": (lambda k=knobs, c=C: group_cpu_cycles(k, c))
+                for cell, knobs, C in group_cells()}
+        runs.update({f"rebalance_{label}": (
+            lambda t=T0, g=gpu, c=cap: rebalance_cpu_run(t, g, c))
+            for label, T0, gpu, cap in REB_VARIANTS if T0 <= REB_CPU_MAX_T0})
+        runs.update({
+            "e2e_sequential": lambda: e2e_run(None),
+            "e2e_batched": lambda: e2e_run(C_BATCHED),
+            "paths": lambda: e2e.device_paths("cpu"),
+            "server": lambda: server_agreement("cpu", SERVER_AGREE),
+            "simulator": lambda: simulate("cpu")[:2]})
+        return runs
+
+    def start(self, here):
+        import atexit
+        import tempfile
+        self.dir = tempfile.mkdtemp(prefix="cook_smoke_cpu_refs_")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   CHIP_SMOKE_PARENT=str(os.getpid()))
+        self.err = open(os.path.join(self.dir, "stderr"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"),
+             "--cpu-refs", self.dir], cwd=here, env=env,
+            stdin=subprocess.DEVNULL, stdout=self.err, stderr=self.err)
+        atexit.register(self.stop)
+
+    def get(self, name):
+        path = os.path.join(self.dir, name + ".json")
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            if self.proc.poll() is not None:
+                with open(os.path.join(self.dir, "stderr")) as f:
+                    tail = f.read()[-3000:]
+                fail(f"the CPU path's references ended with code "
+                     f"{self.proc.returncode} before {name}:\n{tail}")
+            if time.perf_counter() - t0 > self.MAX_S:
+                fail(f"the CPU path's reference {name} not made in "
+                     f"{self.MAX_S} s")
+            time.sleep(0.2)
+        with open(path) as f:
+            r = json.load(f)
+        return r["result"], r["s"]
+
+    def stop(self):
+        import shutil
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if self.dir is not None:
+            self.err.close()
+            shutil.rmtree(self.dir, ignore_errors=True)
+        self.proc = self.dir = None
+
+    @classmethod
+    def child(cls, out):
+        """The child's body: each reference in turn, written to `out`."""
+        import threading
+        parent = int(os.environ.get("CHIP_SMOKE_PARENT", os.getppid()))
+
+        def orphaned():
+            # ends with the smoke, however the smoke ends
+            while os.getppid() == parent:
+                time.sleep(1.0)
+            os._exit(1)
+
+        threading.Thread(target=orphaned, daemon=True).start()
+        import torch
+        here = os.path.dirname(os.path.abspath(__file__))
+        sys.path.insert(0, here)
+        torch.set_num_threads(cls.THREADS)
+        for name, run in cls.runs().items():
+            t = time.perf_counter()
+            r = run()
+            tmp = os.path.join(out, name + ".tmp")
+            with open(tmp, "w") as f:
+                json.dump({"result": r, "s": time.perf_counter() - t}, f)
+            os.replace(tmp, os.path.join(out, name + ".json"))
+
+
+CPU_REFS = CpuRefs()
+
+
 def main():
     import faulthandler
     import torch
@@ -3758,6 +4094,7 @@ def main():
     if not os.path.isdir(os.path.join(here, "cook_tpu_torch")):
         fail("the cook_tpu_torch package is not beside chip_smoke.py")
     sys.path.insert(0, here)
+    CPU_REFS.start(here)
     from cook_tpu_torch.entry import (HEAD_START, resident_workload,
                                       sequential_for)
     from cook_tpu_torch.kernels import build
@@ -4237,6 +4574,9 @@ def main():
         "e2e": e2e_out, "parallel": parallel_out, "bench": bench_out,
         "agents": agents_out})
     mark("analysis")
+    # ---- 15. the failover soak and the four e2e overhead A/Bs -----------
+    soak_out, soak_launches = soak_phase(dev)
+    mark("soak")
 
     def cycle_stats(phase, host, match):
         return {
@@ -4305,6 +4645,7 @@ def main():
         "bench": bench_out,
         "agents": agents_out,
         "analysis": analysis_out,
+        "soak": soak_out,
         "group_routes": gr,
         "group_cells": group_out,
         "rebalance_usage": usage,
@@ -4333,6 +4674,8 @@ def main():
                       for leg in agents_launches},
                    **{leg: analysis_launches[leg].get(k, 0)
                       for leg in analysis_launches},
+                   **{leg: soak_launches[leg].get(k, 0)
+                      for leg in soak_launches},
                    **{cell: group_launches[cell][k]
                       for cell in group_launches}}
                for k in seq_launches}
@@ -4443,5 +4786,35 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def sample_stacks(path, every_s=1.0):
+    """Writes the main thread's Python stack to `path` every `every_s`
+    seconds (the seconds since the start, then its frames innermost
+    first, `file:function:line` joined by " < "): where a run's time
+    goes, at no cost to the card."""
+    import threading
+    import traceback
+    main_id = threading.get_ident()
+
+    def sampler():
+        with open(path, "w") as f:
+            while True:
+                time.sleep(every_s)
+                frame = sys._current_frames().get(main_id)
+                if frame is None:
+                    return
+                stack = traceback.extract_stack(frame)
+                f.write(f"{time.perf_counter() - T_START:.0f} " + " < ".join(
+                    f"{os.path.basename(x.filename)}:{x.name}:{x.lineno}"
+                    for x in reversed(stack[-14:])) + "\n")
+                f.flush()
+
+    threading.Thread(target=sampler, daemon=True).start()
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--cpu-refs"]:
+        CpuRefs.child(sys.argv[2])
+    else:
+        if sys.argv[1:2] == ["--stack-samples"]:
+            sample_stacks(sys.argv[2])
+        main()

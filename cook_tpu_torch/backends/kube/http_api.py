@@ -155,7 +155,7 @@ def pod_to_json(pod: Pod, namespace: str) -> dict:
             "command": ["/bin/sh", "-c",
                         pod.sidecar.get(
                             "command",
-                            "python -m cook_tpu.agent.file_server "
+                            "python -m cook_tpu_torch.agent.file_server "
                             f"--root /cook-sandbox --port {port}")],
             "ports": [{"containerPort": port}],
             "volumeMounts": [{"name": "cook-sandbox",

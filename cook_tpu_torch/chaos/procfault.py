@@ -25,11 +25,12 @@ stamped by the supervisor) is mixed into the rng so a restarted
 process does not re-draw the identical schedule and livelock killing
 itself at the same early site forever.
 
-``ServerSupervisor`` is the other half: it spawns the real server
-(``python -m cook_tpu.rest.server``) as a subprocess with the kill
-sites armed, detects SIGKILL death, and restarts it against the same
-store directory with the incarnation bumped — the harness
-``tests/livestack.py`` and ``bench.py crash-soak`` both drive it.
+``ServerSupervisor`` is the other half: it spawns the port's server
+(``python -m cook_tpu_torch.rest.server --device <device>``) as a
+subprocess with the kill sites armed, detects SIGKILL death, and
+restarts it against the same store directory with the incarnation
+bumped — the harness ``tests/torch_livestack.py`` (and through it
+``bench_torch.py failover``) drives it.
 """
 from __future__ import annotations
 
@@ -176,7 +177,8 @@ class ServerSupervisor:
     reconcile latency) in ``ready_times_s`` and every observed death in
     ``deaths``. ``ensure_alive()`` is the poll-driven heart: call it
     from the harness loop; it respawns a dead child with the
-    incarnation bumped so the procfault rng re-rolls.
+    incarnation bumped so the procfault rng re-rolls. ``device`` is the
+    server's ``--device``: "cuda" unless the caller asks for "cpu".
     """
 
     def __init__(self, config_path: str, url: str,
@@ -184,8 +186,10 @@ class ServerSupervisor:
                  seed: int = 0, max_kills: int = 3,
                  budget_file: Optional[str] = None,
                  log_path: Optional[str] = None,
-                 extra_env: Optional[dict] = None):
+                 extra_env: Optional[dict] = None,
+                 device: str = "cuda"):
         self.config_path = config_path
+        self.device = device
         self.url = url.rstrip("/")
         self.sites = dict(sites or {})
         self.seed = seed
@@ -211,15 +215,14 @@ class ServerSupervisor:
             env[ENV_INCARNATION] = str(self.incarnation)
             if self.budget_file:
                 env[ENV_BUDGET] = self.budget_file
-        env.setdefault("JAX_PLATFORMS", "cpu")
         if self.log_path:
             self._log_f = open(self.log_path, "ab")
             out = self._log_f
         else:
             out = None
         self._proc = subprocess.Popen(
-            [sys.executable, "-m", "cook_tpu.rest.server",
-             "--config", self.config_path],
+            [sys.executable, "-m", "cook_tpu_torch.rest.server",
+             "--config", self.config_path, "--device", self.device],
             stdout=out, stderr=out, env=env)
 
     def start(self, ready_timeout_s: float = 60.0) -> None:

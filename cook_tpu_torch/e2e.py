@@ -21,7 +21,8 @@ pool p(i % K) and the n-th job in p(n % K), and a bench cycle drives
 the K pools' `match_cycle`s from K threads at once (bench_e2e's
 executor). `sequential_threshold` is the coordinator's
 `sequential_match_threshold`, `native` the native consume switch
-(restored at `close`), and `durability_check` bench_e2e's cold-replay
+(restored at `close`), `decision_provenance` the coordinator's (None:
+its default, on) and `durability_check` bench_e2e's cold-replay
 check. Job uuids are deterministic (a counter), so two runs of one seed
 submit the same jobs.
 
@@ -74,8 +75,12 @@ PHASES = ("drain_ms", "ship_ms", "dispatch_ms", "readback_ms",
           "launch_txn_ms", "consume_bookkeep_ms", "backend_launch_ms")
 
 
+# the wall clock `pinned_clocks` holds
+PINNED_WALL_S = 1_700_000_000.0
+
+
 @contextlib.contextmanager
-def pinned_clocks(wall_s: float = 1_700_000_000.0):
+def pinned_clocks(wall_s: float = PINNED_WALL_S):
     """Within the block `time.time()` and the store's clock read
     `wall_s` and `uuid.uuid4()` counts from 1: two runs of one scenario
     then stamp the same submit and start times and the same task ids
@@ -119,7 +124,7 @@ class Workload:
                  durable=True, status_shards=19, shard_devices=None,
                  pools=1, store_shards=STORE_SHARDS, runtime_s=RUNTIME_S,
                  rotate_lines=ROTATE_LINES, sequential_threshold=None,
-                 native=None):
+                 native=None, decision_provenance=None):
         self.rng = rng = np.random.default_rng(SEED)
         self.U = U
         self.pools = K = max(1, int(pools))
@@ -151,6 +156,10 @@ class Workload:
             cfg.max_jobs_considered = consider
         if pipeline_depth is not None:
             cfg.pipeline_depth = int(pipeline_depth)
+        if decision_provenance is not None:
+            # bench_e2e's decision-overhead switch: the why rows on the
+            # prefix readback and their recording
+            cfg.decision_provenance = bool(decision_provenance)
         preg = PoolRegistry(names[0])
         for name in names[1:]:
             preg.add(Pool(name=name))
@@ -327,13 +336,14 @@ class Workload:
 
 def run_cycles(w: Workload, cycles: int, warmup: int,
                on_cycle=None, concurrent: bool = True) -> dict:
-    """bench_e2e's loop: each cycle one bench cycle (`Workload.cycle`:
-    every pool's `match_cycle`, timed together on the host clock, with
-    the coordinator's phase metrics and the cyclic collector's pauses in
-    it), then one virtual second with its refill. A phase is the mean
-    over the pools and a resync the longest (bench_e2e's pool_metric).
-    `on_cycle(c, stats)` runs after each cycle's match, before the
-    advance. Returns the measured lists."""
+    """bench_e2e's loop (bench.py:991): `cycles` cycles in all, the
+    first `warmup` of them untimed, each one bench cycle
+    (`Workload.cycle`: every pool's `match_cycle`, timed together on the
+    host clock, with the coordinator's phase metrics and the cyclic
+    collector's pauses in it), then one virtual second with its refill.
+    A phase is the mean over the pools and a resync the longest
+    (bench_e2e's pool_metric). `on_cycle(c, stats)` runs after each
+    cycle's match, before the advance. Returns the measured lists."""
     co = w.coord
     wall, matched, resyncs, refreezes = [], [], [], []
     phases = {k: [] for k in PHASES}
@@ -352,7 +362,7 @@ def run_cycles(w: Workload, cycles: int, warmup: int,
 
     gc.callbacks.append(on_gc)
     try:
-        for c in range(warmup + cycles):
+        for c in range(cycles):
             pause[0], pause[1] = 0.0, -1
             t_c = time.perf_counter()
             stats = w.cycle(concurrent)
@@ -398,6 +408,7 @@ def summary(r: dict) -> dict:
                             for k, v in r["phases"].items()},
         "phase_means_ms": {k: float(np.mean(v))
                            for k, v in r["phases"].items()},
+        "readback_mean_ms": float(np.mean(r["phases"]["readback_ms"])),
         "resyncs": r["resyncs"],
         "gc_refreezes": r["gc_refreezes"],
         # the cyclic collector's pauses inside match_cycle

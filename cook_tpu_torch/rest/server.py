@@ -21,6 +21,7 @@ import argparse
 import json
 import logging
 import os
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -163,6 +164,43 @@ def install_artifact_flush() -> None:
         signal.signal(signal.SIGTERM, on_term)
     except (ValueError, OSError):
         pass  # not on the main thread (embedded use); atexit still runs
+
+
+# the prefix of the two lines an incarnation of the server writes to
+# stderr, each followed by a JSON object: at boot its pid and device,
+# and on SIGTERM also its kernel launches (a supervisor reads them from
+# the server's log: tests/torch_livestack.py `incarnations`)
+INCARNATION = "cook_tpu_torch.rest.server incarnation "
+
+
+def report_incarnation(device) -> None:
+    """Write the boot line, and install a SIGTERM handler that writes
+    the launch line, then hands the signal on to the handler installed
+    before it (a function, or the default or ignoring disposition, put
+    back and the signal sent again)."""
+    import signal
+
+    def line(**extra):
+        sys.stderr.write(INCARNATION + json.dumps(
+            {"pid": os.getpid(), "device": str(device), **extra}) + "\n")
+        sys.stderr.flush()
+
+    line()
+    prev = signal.getsignal(signal.SIGTERM)
+
+    def on_term(signum, frame):
+        from cook_tpu_torch.ops import fused_match as fm
+        line(kernel_launches=dict(fm.LAUNCHES))
+        if callable(prev):
+            prev(signum, frame)
+        else:
+            signal.signal(signal.SIGTERM, prev)
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    try:
+        signal.signal(signal.SIGTERM, on_term)
+    except (ValueError, OSError):
+        pass   # not on the main thread (embedded use)
 
 
 def apply_gc_discipline() -> None:
@@ -650,6 +688,7 @@ def main(argv=None) -> None:
         signal.signal(signal.SIGHUP, _sighup_reload)
     except (ValueError, OSError, AttributeError):
         pass   # non-main thread (embedded) or no SIGHUP on platform
+    report_incarnation(coord.device)
 
     def _still_leader():
         elector = getattr(api, "leader_elector", None)

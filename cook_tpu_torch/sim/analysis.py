@@ -4,10 +4,10 @@ The reference ships `scheduler/simulator_files/analysis/analysis.ipynb`
 + helpers to chart wait/turnaround/overhead distributions and compare
 scheduler runs (simulator reporting.clj:156-325 produces the same
 aggregates server-side). This module reads one or more run-trace CSVs
-(written by `Simulator.write_run_trace` / `python -m cook_tpu.sim
+(written by `Simulator.write_run_trace` / `python -m cook_tpu_torch.sim
 --out-trace-file`) and produces the same cuts:
 
-    python -m cook_tpu.sim.analysis run1.csv [run2.csv ...] \
+    python -m cook_tpu_torch.sim.analysis run1.csv [run2.csv ...] \
         [--charts out_dir] [--by-user]
 
 Text report always; charts (wait-time CDF, per-user mean wait bars,
@@ -157,7 +157,8 @@ def charts(results: dict[str, dict], out_dir: str) -> list[str]:
 
 
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(prog="python -m cook_tpu.sim.analysis")
+    p = argparse.ArgumentParser(
+        prog="python -m cook_tpu_torch.sim.analysis")
     p.add_argument("traces", nargs="+", help="run-trace CSV files")
     p.add_argument("--charts", help="directory for chart PNGs")
     p.add_argument("--by-user", action="store_true",

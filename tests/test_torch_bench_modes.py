@@ -429,3 +429,82 @@ def test_fleet_on_the_cpu(monkeypatch):
     assert out["worker_scale"]["P0"] == 500
     assert out["compute_mode"] is None and out["device"] == {
         "platform": "cpu"}
+
+
+def reference_e2e(monkeypatch, capsys, **kw):
+    """cook_tpu's bench.py::bench_e2e at `kw` on the CPU, clocks and
+    uuids pinned (e2e.pinned_clocks, and cook_tpu's store clock), its
+    n-th job given the port workload's n-th uuid and every backend
+    launch recorded with the match_cycle it ran in. Returns its printed
+    line, its launch digests (per cycle, then the final drain's, as
+    bench_torch.launch_digests) and the decisions its metrics registry
+    recorded. Unpinned, both packages' launches from the second cycle
+    on follow the wall clock (submit and start times in ms)."""
+    from cook_tpu.backends.mock import MockCluster
+    from cook_tpu.scheduler.coordinator import Coordinator
+    from cook_tpu.state import model
+    from cook_tpu.utils.metrics import registry
+
+    def recorded():
+        return sum(v["value"] for k, v in registry.snapshot().items()
+                   if k.startswith("decisions_total"))
+
+    seq = iter(range(10 ** 6))
+    launched, marks = [], []
+    launch, cycle = MockCluster.launch_tasks, Coordinator.match_cycle
+
+    def launch_tasks(self, pool, specs):
+        launched.extend((s.job_uuid, s.hostname) for s in specs)
+        return launch(self, pool, specs)
+
+    def match_cycle(self, *a, **k):
+        try:
+            return cycle(self, *a, **k)
+        finally:
+            marks.append(len(launched))
+
+    with monkeypatch.context() as m:
+        m.setattr(model, "new_uuid", lambda: job_uuid(next(seq)))
+        m.setattr(MockCluster, "launch_tasks", launch_tasks)
+        m.setattr(Coordinator, "match_cycle", match_cycle)
+        ref, before = {}, recorded()
+        with e2e.pinned_clocks():
+            model.set_clock(lambda: e2e.PINNED_WALL_S)
+            try:
+                bench.bench_e2e(stats_out=ref, **kw)
+            finally:
+                model.reset_clock()
+                gc.unfreeze()   # bench_e2e's gc discipline freezes the heap
+    marks.append(len(launched))
+    capsys.readouterr()
+    return ref, bench_torch.launch_digests(launched, marks), \
+        recorded() - before
+
+
+# bench.py main()'s e2e-small and e2e-batched settings at a toy scale
+# where every cycle places jobs and none completes (tasks run 10 s of
+# the mock's clock)
+E2E_PARITY = {
+    "e2e-small": {},
+    "e2e-batched": {"sequential_threshold": 512},
+}
+
+
+@pytest.mark.parametrize("mode", sorted(E2E_PARITY))
+def test_e2e_cycles_and_launches_equal_cook_tpu(monkeypatch, capsys, mode):
+    """bench_torch.bench_e2e counts cycles as bench.py's bench_e2e does
+    (`cycles` in all, the first `warmup` untimed) and launches what it
+    launches, cycle by cycle, at the mode's knobs, both with clocks and
+    uuids pinned: equal launch digests (the inline consumer), equal
+    timed cycles and matched per cycle."""
+    kw = dict(P0=3000, H=200, U=100, cycles=5, warmup=2, **E2E_PARITY[mode])
+    ref, want, _ = reference_e2e(monkeypatch, capsys, **kw)
+    with e2e.pinned_clocks():
+        got = bench_torch.bench_e2e(device="cpu", digests=True, **kw)
+    capsys.readouterr()
+    assert len(want) == kw["cycles"] + 1
+    assert got["launch_digests"] == want
+    assert got["cycles"] == ref["cycles"] == kw["cycles"] - kw["warmup"]
+    assert got["matched_per_cycle"] == pytest.approx(
+        ref["matched_per_cycle"], abs=0.05)
+    assert got["sequential"] == (mode == "e2e-small")

@@ -127,6 +127,57 @@ _OUT = os.path.join(os.path.dirname(_DIR), "_build", "native")
         ("Entry point: `python -m cook_tpu.cli <subcommand> ...`.",
          "Entry point: `python -m cook_tpu_torch.cli <subcommand> ...`."),
     ],
+    "sim/analysis.py": [
+        ("(written by `Simulator.write_run_trace` / `python -m cook_tpu.sim\n",
+         "(written by `Simulator.write_run_trace` / `python -m cook_tpu_torch.sim\n"),
+        ("    python -m cook_tpu.sim.analysis run1.csv [run2.csv ...] \\\n",
+         "    python -m cook_tpu_torch.sim.analysis run1.csv [run2.csv ...] \\\n"),
+        ('    p = argparse.ArgumentParser(prog="python -m cook_tpu.sim.analysis")',
+         '    p = argparse.ArgumentParser(\n        prog="python -m cook_tpu_torch.sim.analysis")'),
+    ],
+    # the sidecar a kube pod runs beside its task serves the sandbox
+    # with the port's file server, not the JAX package's module
+    "backends/kube/http_api.py": [
+        ('                            "python -m cook_tpu.agent.file_server "',
+         '                            "python -m cook_tpu_torch.agent.file_server "'),
+    ],
+    # the supervisor runs the port's server on the device it is given
+    # (the card unless the caller asks for the CPU); the original ran
+    # the JAX package's server with JAX_PLATFORMS=cpu
+    "chaos/procfault.py": [
+        ("""``ServerSupervisor`` is the other half: it spawns the real server
+(``python -m cook_tpu.rest.server``) as a subprocess with the kill
+sites armed, detects SIGKILL death, and restarts it against the same
+store directory with the incarnation bumped — the harness
+``tests/livestack.py`` and ``bench.py crash-soak`` both drive it.""",
+         """``ServerSupervisor`` is the other half: it spawns the port's server
+(``python -m cook_tpu_torch.rest.server --device <device>``) as a
+subprocess with the kill sites armed, detects SIGKILL death, and
+restarts it against the same store directory with the incarnation
+bumped — the harness ``tests/torch_livestack.py`` (and through it
+``bench_torch.py failover``) drives it."""),
+        ("""    incarnation bumped so the procfault rng re-rolls.
+    \"\"\"
+""",
+         """    incarnation bumped so the procfault rng re-rolls. ``device`` is the
+    server's ``--device``: "cuda" unless the caller asks for "cpu".
+    \"\"\"
+"""),
+        ("""                 extra_env: Optional[dict] = None):
+        self.config_path = config_path
+""",
+         """                 extra_env: Optional[dict] = None,
+                 device: str = "cuda"):
+        self.config_path = config_path
+        self.device = device
+"""),
+        ("""        env.setdefault("JAX_PLATFORMS", "cpu")
+""", ""),
+        ("""            [sys.executable, "-m", "cook_tpu.rest.server",
+             "--config", self.config_path],""",
+         """            [sys.executable, "-m", "cook_tpu_torch.rest.server",
+             "--config", self.config_path, "--device", self.device],"""),
+    ],
     "backends/kube/standin.py": [
         ('    """`python -m cook_tpu.backends.kube.standin --port 12380',
          '    """`python -m cook_tpu_torch.backends.kube.standin --port 12380'),
@@ -378,6 +429,28 @@ UNPORTED = {
 }
 
 
+# bench.py's modes with no counterpart in bench_torch.py's MODES, and
+# why (ROADMAP: Queue A, and "Not queued")
+UNPORTED_MODES = {
+    # queued: ROADMAP Queue A 1, tests/daysoak.py on the port's servers
+    "day-soak": "queued",
+    # A/Bs the use_pallas switch, which the port does not have
+    "pallas": "not queued",
+    # the store and the log alone, code the port copies verbatim; none
+    # reaches the device
+    "crash-soak": "not queued",
+    "launch": "not queued",
+    "store-shard": "not queued",
+}
+
+
+def test_every_bench_mode_has_a_counterpart_or_a_reason():
+    import bench_torch
+    modes = set(re.findall(r'which == "([\w-]+)"',
+                           (ROOT / "bench.py").read_text()))
+    assert modes - set(bench_torch.MODES) == set(UNPORTED_MODES)
+
+
 def test_every_module_of_the_reference_has_a_counterpart():
     missing = set()
     for f in REF.rglob("*.py"):
@@ -391,3 +464,126 @@ def test_every_module_of_the_reference_has_a_counterpart():
     assert (PORT / "analysis/trace_purity.py").exists()
     assert {"exact_scan.cu", "best_host.cu"} <= {
         f.name for f in (PORT / "csrc").glob("*.cu")}
+
+
+# the soak harnesses the port's failover soak runs on, copied from the
+# reference's tests/ with their imports on the port (cook_tpu ->
+# cook_tpu_torch, tests.livestack -> tests.torch_livestack) and these
+# hunks, each applied once: (original hunk, copy's hunk)
+TEST_COPIES = {
+    "torch_livestack.py": ("livestack.py", [
+        # LiveServer runs the port's server on a device, and each
+        # incarnation names its device (and, once stopped, its launches)
+        # in the server log
+        ("""- ``LiveServer``: the real server (``python -m cook_tpu.rest.server``)
+  as a supervised SUBPROCESS over a durable store directory, with
+  procfault kill points armable — the crash-soak harness.""",
+         """- ``LiveServer``: the port's server (``python -m
+  cook_tpu_torch.rest.server --device <device>``) as a supervised
+  SUBPROCESS over a durable store directory, with procfault kill points
+  armable — the crash-soak harness. Each incarnation writes its pid and
+  device to the server log at boot, and its kernel launches on SIGTERM
+  (``incarnations``)."""),
+        ("""from cook_tpu_torch.rest.server import ApiServer
+""",
+         """from cook_tpu_torch.rest.server import INCARNATION, ApiServer
+"""),
+        ("""def _merge(base: dict, over: dict) -> dict:""",
+         '''def incarnations(log_path) -> list:
+    """The server incarnations a log holds, in boot order: each a dict
+    of its pid and device, and `kernel_launches` (None until it wrote
+    them on SIGTERM; a SIGKILLed incarnation never does)."""
+    out: dict = {}
+    try:
+        with open(log_path, errors="replace") as f:
+            for line in f:
+                i = line.find(INCARNATION)
+                if i < 0:
+                    continue
+                try:
+                    rec = json.loads(line[i + len(INCARNATION):])
+                except ValueError:
+                    continue
+                got = out.setdefault(rec["pid"], {
+                    "pid": rec["pid"], "device": rec["device"],
+                    "kernel_launches": None})
+                if "kernel_launches" in rec:
+                    got["kernel_launches"] = rec["kernel_launches"]
+    except OSError:
+        pass
+    return list(out.values())
+
+
+def _merge(base: dict, over: dict) -> dict:'''),
+        ("""    def __init__(self, store_dir, sites=None, seed=0, max_kills=2,
+                 overrides=None, name=None, port=None):""",
+         """    def __init__(self, store_dir, sites=None, seed=0, max_kills=2,
+                 overrides=None, name=None, port=None, device="cuda"):"""),
+        ('''        pre-allocates ports and passes them in."""''',
+         '''        pre-allocates ports and passes them in. ``device`` is the
+        server's ``--device`` ("cuda" unless the caller asks for
+        "cpu")."""'''),
+        ("""            log_path=self.server_log)""",
+         """            log_path=self.server_log, device=device)"""),
+        ("""    def stop(self) -> None:
+        self.sup.stop()""",
+         '''    def incarnations(self) -> list:
+        """This member's server incarnations (``incarnations``)."""
+        return incarnations(self.server_log)
+
+    def stop(self) -> None:
+        self.sup.stop()'''),
+    ]),
+    "torch_fedsoak.py": ("fedsoak.py", [
+        # the HA pair is the port's servers, on the device given
+        ("""The day-soak churns the AGENT fleet under one coordinator; this tier
+churns the COORDINATOR tier itself. Two real server processes (an HA
+pair, ``tests.livestack.LiveServer`` with per-member file suffixes)""",
+         """The day-soak churns the AGENT fleet under one coordinator; this tier
+churns the COORDINATOR tier itself. Two real server processes of the
+port (an HA pair, ``tests.torch_livestack.LiveServer`` with per-member
+file suffixes, each on the device it is given)"""),
+        ("""Evidence is COLLECTED here and asserted by the caller
+(tests/test_federation_soak.py; ``bench.py failover`` measures the
+MTTR half at full magnitude). Every input schedule and ledger is
+written to $CHAOS_ARTIFACTS_DIR so a red run ships its replay.""",
+         """Evidence is COLLECTED here and asserted by the caller
+(tests/test_torch_failover_soak.py; ``bench_torch.py failover`` and
+chip_smoke.py measure the MTTR half on the card). Every input schedule
+and ledger is written to $CHAOS_ARTIFACTS_DIR so a red run ships its
+replay."""),
+        ('''                      post_jobs=2, churn=True):
+    """One compressed failover day. Returns an evidence dict; asserts
+    nothing. churn=False is the quiet baseline: same pair, same
+    traffic, zero leader faults — exactly one epoch ever minted.''',
+         '''                      post_jobs=2, churn=True, device="cuda"):
+    """One compressed failover day. Returns an evidence dict; asserts
+    nothing. churn=False is the quiet baseline: same pair, same
+    traffic, zero leader faults — exactly one epoch ever minted. Both
+    servers run on ``device`` ("cuda" unless the caller asks for
+    "cpu"); their logs (``server-a.log``, ``server-b.log`` in
+    ``store_root``) name each incarnation's device and, once stopped,
+    its kernel launches (``tests.torch_livestack.incarnations``).'''),
+        ("""        "a": LiveServer(store_root, name="a", sites=None, seed=seed,
+                        max_kills=0, overrides=overrides),
+        "b": LiveServer(store_root, name="b", sites=None, seed=seed,
+                        max_kills=0, overrides=overrides),""",
+         """        "a": LiveServer(store_root, name="a", sites=None, seed=seed,
+                        max_kills=0, overrides=overrides, device=device),
+        "b": LiveServer(store_root, name="b", sites=None, seed=seed,
+                        max_kills=0, overrides=overrides, device=device),"""),
+    ]),
+}
+_TEST_IMPORT = re.compile(r"^(\s*from )tests\.livestack(?= import)", re.M)
+
+
+@pytest.mark.parametrize("rel", sorted(TEST_COPIES))
+def test_soak_harness_copy_equals_original(rel):
+    orig, hunks = TEST_COPIES[rel]
+    text = _IMPORT.sub(r"\1\2 cook_tpu_torch",
+                       (ROOT / "tests" / orig).read_text())
+    text = _TEST_IMPORT.sub(r"\1tests.torch_livestack", text)
+    for old, new in hunks:
+        assert text.count(old) == 1, (rel, old[:60])
+        text = text.replace(old, new)
+    assert (ROOT / "tests" / rel).read_text() == text

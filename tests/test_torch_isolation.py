@@ -11,6 +11,10 @@
   of the others;
 * no file of the port, nor chip_smoke.py nor bench_torch.py, imports jax
   or cook_tpu, and bench_torch.py runs on the CPU without them;
+* no string of the port, chip_smoke.py, bench_torch.py or
+  tests/torch_*.py asks to run a module of cook_tpu or sets
+  JAX_PLATFORMS (`runs_reference`), so every child process the port
+  starts runs the port;
 * entry points default to CUDA and raise when it is absent;
 * on a CUDA tensor each kernel wrapper launches its kernel and never
   reaches its plain version, and agrees with that plain version (the
@@ -25,6 +29,7 @@
 import ast
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -215,6 +220,102 @@ def test_no_static_import_of_jax_or_cook_tpu(name):
             assert top not in ("jax", "jaxlib", "cook_tpu"), (f, mod)
 
 
+# `python -m cook_tpu.<module>` (or `cook_tpu` alone) in a command
+# string; cook_tpu_torch does not match
+_RUN_REF = re.compile(r"python[\d.]*\s+-m\s+cook_tpu(?!\w)")
+
+
+def _docstrings(tree):
+    return {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                              ast.AsyncFunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)
+            and isinstance(n.body[0].value.value, str)}
+
+
+def runs_reference(src):
+    """The lines of `src` whose string constants ask to run a module of
+    the JAX package or set JAX_PLATFORMS: a "-m", "cook_tpu..." pair in
+    an argv list or tuple, `python -m cook_tpu.` in a command string,
+    JAX_PLATFORMS anywhere (a key, a keyword, a command's setting).
+    Docstrings are text for readers and logger names are not argv, so
+    neither is read."""
+    tree = ast.parse(src)
+    skip, lines = _docstrings(tree), set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in skip:
+            if _RUN_REF.search(node.value) or "JAX_PLATFORMS" in node.value:
+                lines.add(node.lineno)
+        elif isinstance(node, (ast.List, ast.Tuple)):
+            for a, b in zip(node.elts, node.elts[1:]):
+                if isinstance(a, ast.Constant) and a.value == "-m" \
+                        and isinstance(b, ast.Constant) \
+                        and isinstance(b.value, str) \
+                        and b.value.split(".")[0] == "cook_tpu":
+                    lines.add(b.lineno)
+        elif isinstance(node, ast.keyword) and node.arg == "JAX_PLATFORMS":
+            lines.add(node.value.lineno)
+    return sorted(lines)
+
+
+def _port_files(name):
+    return {"package": sorted(PORT.rglob("*.py")),
+            "harnesses": sorted((ROOT / "tests").glob("torch_*.py"))}.get(
+                name, [ROOT / f"{name}.py"])
+
+
+@pytest.mark.parametrize("name", ["package", "chip_smoke", "bench_torch",
+                                  "harnesses"])
+def test_nothing_runs_a_module_of_the_jax_package(name):
+    """No string constant of the port, chip_smoke.py, bench_torch.py or
+    tests/torch_*.py starts a module of cook_tpu or sets JAX_PLATFORMS:
+    a child process of the port runs the port, on the device it was
+    given (the card's machine has no JAX)."""
+    files = _port_files(name)
+    assert files
+    found = {str(f.relative_to(ROOT)): runs_reference(f.read_text())
+             for f in files}
+    assert not {f: ls for f, ls in found.items() if ls}
+
+
+# (source, the lines runs_reference must name): the port's files as they
+# stood before they ran the port's own modules (each then equal to its
+# original in cook_tpu, imports rewritten), and snippets
+_REF_CASES = {
+    # ServerSupervisor._spawn: JAX_PLATFORMS=cpu, then the JAX
+    # package's server
+    "procfault_before": ("cook_tpu/chaos/procfault.py", [214, 221]),
+    # the kube pod sidecar's default command
+    "http_api_before": ("cook_tpu/backends/kube/http_api.py", [158]),
+    # the analysis CLI's usage names the JAX package's module (the
+    # docstring's mentions are not read)
+    "sim_analysis_before": ("cook_tpu/sim/analysis.py", [160]),
+    "argv_tuple": ('cmd = (sys.executable, "-m", "cook_tpu.agent")\n', [1]),
+    "shell_command": ('run("python3 -m cook_tpu.cli ls", shell=True)\n',
+                      [1]),
+    "f_string": ('c = f"python -m cook_tpu.sim --port {p}"\n', [1]),
+    "env_keyword": ('env = dict(os.environ, JAX_PLATFORMS="cpu")\n', [1]),
+    "env_key": ('env["JAX_PLATFORMS"] = "cpu"\n', [1]),
+    "the_port": ('cmd = [sys.executable, "-m", "cook_tpu_torch.agent",\n'
+                 '       "--x"]\nc = "python -m cook_tpu_torch.cli"\n', []),
+    "logger_name": ('log = logging.getLogger("cook_tpu.rest.access")\n', []),
+    "docstring": ('def f():\n    """Run `python -m cook_tpu.cli`."""\n',
+                  []),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_REF_CASES))
+def test_runs_reference_names_each_site(case):
+    src, want = _REF_CASES[case]
+    if src.endswith(".py"):
+        src = re.sub(r"^(\s*)(from|import) cook_tpu(?=[.\s])",
+                     r"\1\2 cook_tpu_torch", (ROOT / src).read_text(),
+                     flags=re.M)
+    assert runs_reference(src) == want
+
+
 _BENCH_CHILD = r"""
 import json, runpy, sys
 sys.argv = ["bench_torch.py"] + sys.argv[1:]
@@ -232,7 +333,8 @@ BENCH_TOY = {
                  "--C", "256", "--cycles", "3"],
     "sequential": ["--R", "200", "--P", "1000", "--H", "64", "--U", "16",
                    "--C", "128", "--cycles", "3"],
-    "e2e": ["--P0", "1500", "--H", "60", "--U", "12", "--cycles", "3",
+    # 4 cycles in all, the first untimed (bench.py's sense)
+    "e2e": ["--P0", "1500", "--H", "60", "--U", "12", "--cycles", "4",
             "--warmup", "1"],
     "pools": ["--R", "40", "--P", "200", "--H", "32", "--U", "4", "--C",
               "64", "--cycles", "2"],
@@ -240,7 +342,7 @@ BENCH_TOY = {
                   "--C", "256", "--cycles", "3"],
     "stream": ["--R", "200", "--P", "1000", "--H", "64", "--U", "16",
                "--C", "256", "--total-jobs", "10000"],
-    "e2e-smoke": ["--P0", "1200", "--H", "48", "--U", "12", "--cycles", "3",
+    "e2e-smoke": ["--P0", "1200", "--H", "48", "--U", "12", "--cycles", "4",
                   "--warmup", "1", "--consider", "64"],
     "ingest": ["--n-single", "10", "--n-conc", "40", "--n-bulk", "2048"],
     "fleet-worker": [],
@@ -257,6 +359,11 @@ BENCH_TOY_ENV = {
 for _mode in ("e2e-small", "e2e-batched", "e2e-async", "longevity",
               "longevity-async"):
     BENCH_TOY[_mode] = BENCH_TOY["e2e"]
+# the four e2e overhead A/Bs at a shape where the timed cycles place jobs
+for _mode in ("decision-overhead", "trace-overhead", "profile-overhead",
+              "chaos-overhead"):
+    BENCH_TOY[_mode] = ["--P0", "3000", "--H", "200", "--U", "100",
+                        "--cycles", "4", "--warmup", "1"]
 
 
 @pytest.mark.parametrize("mode", sorted(BENCH_TOY))
@@ -287,6 +394,14 @@ def test_bench_torch_runs_on_cpu_without_jax(mode):
         assert out["durability_check"]["state_hash_match"]
         assert out["kernel_launches"]["exact_scan"] == 0
         assert len(out["launch_digests"]) == 4 + 1
+    elif mode.endswith("-overhead"):
+        on = "armed" if mode == "chaos-overhead" else "enabled"
+        for k in ("value", "budget_pct", "overhead_ok",
+                  "decisions_per_sec_disabled", f"decisions_per_sec_{on}",
+                  "p99_cycle_ms_disabled", f"p99_cycle_ms_{on}"):
+            assert out[k] is not None, k
+        assert out["decisions_per_sec_disabled"] > 0
+        assert out["cycles"] == 4 and out["warmup"] == 1
     elif mode == "rebalance":
         for k in ("value", "placed", "preempted", "capped8192_ms",
                   "capped8192_preempted"):
@@ -341,7 +456,9 @@ def test_bench_torch_runs_on_cpu_without_jax(mode):
 @pytest.mark.parametrize("mode", ["contended", "stream", "e2e-small",
                                   "e2e-smoke", "e2e-batched", "e2e-async",
                                   "longevity", "longevity-async", "ingest",
-                                  "fleet", "fleet-worker"])
+                                  "fleet", "fleet-worker", "failover",
+                                  "decision-overhead", "trace-overhead",
+                                  "profile-overhead", "chaos-overhead"])
 def test_bench_torch_mode_raises_without_cuda(mode):
     """Without a card and without `--device cpu` a mode raises before
     any work and prints no result line: there is no fallback."""
