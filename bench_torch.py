@@ -93,6 +93,19 @@ its device entry points on one NVIDIA GPU.
                                         incarnation's device and the
                                         survivors' launches; exits
                                         non-zero on any gate breach
+    python3 bench_torch.py day-soak [SEED]
+                                        bench.py::bench_day_soak: the
+                                        compressed production day (120
+                                        diurnal jobs on 6 agents over a
+                                        30 s window, transport faults on
+                                        the agent RPCs, up to 3 SIGKILLs
+                                        of the port's server, fleet
+                                        churn), seed 101, 600 s of wall
+                                        at most; bench.py's line, the
+                                        tests' gates, each incarnation's
+                                        device and the final one's
+                                        launches; exits non-zero on any
+                                        breach
     python3 bench_torch.py decision-overhead|trace-overhead [PATH]|
                            profile-overhead [PATH]|chaos-overhead
                                         bench.py's e2e overhead A/Bs:
@@ -1413,6 +1426,17 @@ def failover_gates(r, kills=0, ceiling_ms=FAILOVER_CEILING_MS) -> list:
     return bad
 
 
+def _server_pythonpath():
+    """Put this checkout on PYTHONPATH: the soaks' servers run `python -m
+    cook_tpu_torch.rest.server` from it, wherever the caller's working
+    directory is."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    paths = [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+             if p]
+    if here not in paths:
+        os.environ["PYTHONPATH"] = os.pathsep.join([here] + paths)
+
+
 def bench_failover(seed=FAILOVER_SEED, device="cuda", **scale):
     """bench.py::bench_failover on the port: an HA pair of the port's
     servers (tests/torch_fedsoak.py, each `python -m
@@ -1437,13 +1461,7 @@ def bench_failover(seed=FAILOVER_SEED, device="cuda", **scale):
 
     dev = resolve_device(device)
     build_s = _prepare(dev)
-    # the servers run `python -m cook_tpu_torch.rest.server` from this
-    # checkout, wherever the caller's working directory is
-    here = os.path.dirname(os.path.abspath(__file__))
-    paths = [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
-             if p]
-    if here not in paths:
-        os.environ["PYTHONPATH"] = os.pathsep.join([here] + paths)
+    _server_pythonpath()
     scale = {**FAILOVER, **scale}
     kills = scale["kills"]
     tmp = Path(tempfile.mkdtemp(prefix="cook_failover_"))
@@ -1506,6 +1524,157 @@ def bench_failover(seed=FAILOVER_SEED, device="cuda", **scale):
     return out
 
 
+# the compressed production day (bench.py:1935-1988): bench.py's scale
+# and default seed, and tests/test_day_soak.py's two ceilings and its
+# instance bounds (16 a job at the quick tier, 24 at this scale); the
+# RSS ceiling holds a CUDA server's own memory (day_soak_gates)
+DAY_SOAK = dict(jobs=120, agents=6, window_s=30.0, wall_s=600.0,
+                max_kills=3, events_per_agent=2.0)
+DAY_SOAK_SEED = 101
+RSS_CEILING_MB = 3000.0
+SUBMIT_P99_CEILING_MS = 5000.0
+INSTANCE_BOUND = {False: 16, True: 24}
+
+
+def day_soak_gates(r, full=False, device="cpu") -> list:
+    """The gates tests/test_day_soak.py::_assert_gates asserts on a day
+    soak's evidence `r`, as a list of the breaches (empty when every
+    gate holds): no violation; no job lost; every job completed with
+    success and at most INSTANCE_BOUND[full] instances; no task launched
+    twice; every restart ready within 20 s; the server's RSS and the
+    submit p99 under their ceilings.
+
+    One listed difference: a server on "cuda" holds RSS_CEILING_MB with
+    its own memory (`max_rss_own_mb`: its RSS less the clean pages of the
+    files it maps read-only, tests/torch_daysoak.py), not its whole RSS
+    (`max_rss_mb`, reported all the same). torch built for CUDA holds its
+    CUDA libraries' images resident (GBs on an H100 host, page cache
+    shared with every process that maps them), over the ceiling before
+    the server has done anything; the ceiling, set for a CPU server,
+    bounds what the server allocates. On the CPU the gate is the
+    reference's."""
+    bad = []
+    if r["violations"]:
+        bad.append(f"in-flight violations: {r['violations']}")
+    if len(r["jobs"]) != r["expected_jobs"]:
+        bad.append(f"lost jobs: {len(r['jobs'])}/{r['expected_jobs']}")
+    for j in r["jobs"].values():
+        if j.status != "completed" or j.state != "success":
+            bad.append(f"{j.uuid} ended {j.status} / {j.state}")
+        if len(j.instances) > INSTANCE_BOUND[full]:
+            bad.append(f"{j.uuid} churned {len(j.instances)} instances")
+    doubled = {t: n for t, n in r["launch_counts"].items() if n > 1}
+    if doubled:
+        bad.append(f"double-launched task_ids: {doubled}")
+    for t in r["ready_times_s"]:
+        if t > 20.0:
+            bad.append(f"restart took {t:.1f}s")
+    rss_key = "max_rss_own_mb" if device == "cuda" else "max_rss_mb"
+    if not r[rss_key] < RSS_CEILING_MB:
+        bad.append(f"server RSS ({rss_key}) {r[rss_key]}MB over ceiling")
+    if device == "cuda" and r["max_rss_mb"] and not r["max_rss_own_mb"]:
+        bad.append("the server's own RSS (max_rss_own_mb) was never read")
+    if not r["submit_p99_ms"] < SUBMIT_P99_CEILING_MS:
+        bad.append(f"submit p99 {r['submit_p99_ms']}ms over ceiling")
+    return bad
+
+
+def bench_day_soak(seed=DAY_SOAK_SEED, device="cuda", **scale):
+    """bench.py::bench_day_soak on the port: the compressed production
+    day (tests/torch_daysoak.py: diurnal arrivals, transport chaos on
+    the agent RPCs, SIGKILLs of the port's server, `python -m
+    cook_tpu_torch.rest.server --device <device>`, at seeded kill
+    points, and agent-fleet churn, all armed at once), at bench.py's
+    DAY_SOAK scale unless a `scale` is given: then run_day_soak's own
+    arguments (`jobs`, ..., `churn`, `transport`), its defaults for what
+    the scale leaves out. bench.py's line
+    and its `ok` (no violation, no double launch, every job completed),
+    and beside them the soak's other gates (`day_soak_gates`, the
+    instance bound of DAY_SOAK's scale when the scale is DAY_SOAK's),
+    the server's own memory beside its RSS (the RSS gate's reading on
+    cuda), each server incarnation's device (all on `device`) and the final
+    incarnation's kernel launches (on the card, exact_scan launched).
+    CHAOS_ARTIFACTS_DIR keeps the store and the artifacts. Returns the
+    printed line; its `ok` is false on any breach."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from cook_tpu_torch.device import resolve_device
+    from tests.torch_daysoak import run_day_soak
+
+    dev = resolve_device(device)
+    build_s = _prepare(dev)
+    _server_pythonpath()
+    scale = scale or dict(DAY_SOAK)
+    full = scale == DAY_SOAK
+    tmp = Path(tempfile.mkdtemp(prefix="cook_day_soak_"))
+    try:
+        t0 = time.monotonic()
+        r = run_day_soak(tmp / "store", seed, device=dev.type, **scale)
+        wall_s = time.monotonic() - t0
+    finally:
+        if not os.environ.get("CHAOS_ARTIFACTS_DIR"):
+            shutil.rmtree(tmp, ignore_errors=True)
+    completed = sum(1 for j in r["jobs"].values()
+                    if j.status == "completed")
+    doubled = {t: n for t, n in r["launch_counts"].items() if n > 1}
+    bench_ok = (not r["violations"] and not doubled
+                and completed == r["expected_jobs"]
+                and len(r["jobs"]) == r["expected_jobs"])
+    gates = day_soak_gates(r, full, dev.type)
+    incs = r["incarnations"]
+    on_device = bool(incs) and all(
+        i["device"].split(":")[0] == dev.type for i in incs)
+    final = incs[-1]["kernel_launches"] if incs else None
+    reported = [i for i in incs if i["kernel_launches"] is not None]
+    launched = dev.type != "cuda" or bool(
+        final and final.get("exact_scan", 0) > 0)
+    out = {
+        "metric": "compressed production-day soak, full magnitude"
+                  if full else "compressed production-day soak",
+        "value": completed,
+        "unit": f"jobs completed of {r['expected_jobs']}",
+        "ok": bench_ok and not gates and on_device and launched,
+        "seed": seed,
+        "wall_s": round(wall_s, 1),
+        "violations": r["violations"],
+        "double_launches": doubled,
+        "transport_injected": r["transport_injected"],
+        "server_deaths": r["server_deaths"],
+        "churn_events": len(r["churn_events"]),
+        "submit_p99_ms": r["submit_p99_ms"],
+        "max_rss_mb": r["max_rss_mb"],
+        "overload_level_max": r["overload_level_max"],
+        "kill_ledger": r["kill_ledger"],
+        "max_rss_own_mb": r["max_rss_own_mb"],
+        "bench_ok": bench_ok,
+        "gate_breaches": gates,
+        "kills": len(r["kills"]),
+        "max_instances": max((len(j.instances)
+                              for j in r["jobs"].values()), default=0),
+        "ready_times_s": r["ready_times_s"],
+        "incarnations": [{"pid": i["pid"], "device": i["device"]}
+                         for i in incs],
+        "incarnations_on_device": on_device,
+        # None when the final incarnation never reported (it always
+        # does: it is stopped by SIGTERM); the launches of every
+        # incarnation that reported are beside it
+        "final_exact_scan_launches":
+            None if final is None else final.get("exact_scan", 0),
+        "final_kernel_launches":
+            None if final is None else {k: v for k, v in final.items() if v},
+        "reported_kernel_launches": [
+            {k: v for k, v in i["kernel_launches"].items() if v}
+            for i in reported],
+        "scale": scale,
+        "build_s": build_s,
+        **device_fields(dev),
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def _last_json(text: str) -> dict:
     return json.loads([ln for ln in text.splitlines()
                        if ln.startswith("{")][-1])
@@ -1530,6 +1699,7 @@ MODES = {
     "fleet": {},
     "fleet-worker": {},
     "failover": {},
+    "day-soak": {},
     "decision-overhead": dict(AB_SHAPE),
     "trace-overhead": dict(AB_SHAPE),
     "profile-overhead": dict(AB_SHAPE),
@@ -1590,6 +1760,7 @@ def main(argv=None):
                     choices=sorted(MODES))
     ap.add_argument("arg", nargs="?", default=None,
                     help="bench.py's argv[2]: failover's seed (31); "
+                         "day-soak's seed (101); "
                          "trace-overhead's and profile-overhead's "
                          "Chrome-trace path (cook_trace.json / "
                          "cook_profile.json in the temp directory)")
@@ -1631,7 +1802,8 @@ def main(argv=None):
         if given:
             ap.error(f"{a.mode} takes its scale from FLEET_BENCH_* only, "
                      f"not --{', --'.join(given)}")
-    if a.arg is not None and a.mode not in ("failover", "trace-overhead",
+    if a.arg is not None and a.mode not in ("failover", "day-soak",
+                                            "trace-overhead",
                                             "profile-overhead"):
         ap.error(f"{a.mode} takes no positional argument")
     shape = dict(MODES[a.mode])
@@ -1655,6 +1827,10 @@ def main(argv=None):
     elif a.mode == "failover":
         seed = FAILOVER_SEED if a.arg is None else int(a.arg)
         if not bench_failover(seed=seed, device=a.device)["ok"]:
+            sys.exit(1)
+    elif a.mode == "day-soak":
+        seed = DAY_SOAK_SEED if a.arg is None else int(a.arg)
+        if not bench_day_soak(seed=seed, device=a.device)["ok"]:
             sys.exit(1)
     elif a.mode in AB_MODES:
         # like bench.py's, an A/B reports overhead_ok and exits 0

@@ -140,8 +140,8 @@
    launch blocked_cumsum, ordered_scatter's cluster route once a step
    (its usage: T > 32,768) and sum_ordered (one CTA, or past 262,144 its
    cluster) twice a step, no route beyond them, place a job, and make no
-   host sync before its readback (sync debug mode); the exact and the
-   300k sweeps are also profiled, timed and their launches a step counted with the
+   host sync before its readback (sync debug mode); the 300k sweep
+   is also profiled, timed and its launches a step counted with the
    calls routed as before the cluster routes (ordered_scatter/sorted,
    sum_ordered/levels), in turns with the new routes; the same sweep
    with every wrapper routed
@@ -201,7 +201,7 @@
    (131,072 MB, 32 cpus), the default pool, max_jobs_considered 1,024,
    the default resident match and pipeline depth (an async consumer),
    a durable log in a temp dir, no overload ladder (as bench_e2e), served
-   by an ApiServer on a free port. P = 100,000 jobs of U = 500 users
+   by an ApiServer on a free port. P = 25,000 jobs of U = 500 users
    (mem U(1,024, 10,240) MB, cpus U(0.5, 4), 2% pinned to one of 50
    racks the smoke labels the hosts with, seeded) are POSTed to
    /jobs/bulk over HTTP from 8 client threads, one user's jobs a request
@@ -372,6 +372,21 @@
      epochs, the stale-epoch fence, the takeover under 20,000 ms), every
      server incarnation on the card, exact_scan launched by a survivor
      (each writes its launches to its log on SIGTERM);
+   - the day soak: tests/test_day_soak.py's QUICK tier (6 jobs, 3
+     agents, a 3 s window, 1 SIGKILL, seed 101) through
+     bench_torch.bench_day_soak, one `python -m
+     cook_tpu_torch.rest.server --device cuda` under transport faults
+     on the agent RPCs (the chaos controller armed in this process),
+     seeded SIGKILLs and agent churn (tests/torch_daysoak.py): every
+     gate of _assert_gates (bench_torch.day_soak_gates; the RSS ceiling
+     on the server's own memory, its RSS less its libraries' clean
+     read-only pages, which is printed beside it), a SIGKILL
+     landed, a transport fault injected, a churn schedule, every
+     incarnation on the card, exact_scan launched by the final one, the
+     controller reset after; then its quiet baseline (6 jobs, 2 agents,
+     seed 7, no churn, kill or fault): every gate, no kill, no fault,
+     the overload ladder at level 0 (a CUDA warm-up must not read as
+     overload), one instance a job, exact_scan launched;
    - decision-, trace-, profile- and chaos-overhead at 20k pending x 2k
      hosts, 12 cycles an arm of which 4 untimed (decision-overhead one
      round): each toggle must take (decisions recorded off 0 and on
@@ -389,7 +404,11 @@
    it also times on the earlier routes), phase 11's sharded resident
    cycles (4 to 2), phase 9's job-state reads (batched by user), and
    the CPU path's runs of phases 5b-10 made beside the card's phases
-   (below).
+   (below). Cut for the day soak (~40-55 s): phase 9's backlog at C =
+   1,024 and its deterministic run (P = 100,000 jobs to 25,000), and
+   phase 6's profiled sweeps (2 to the 300k one, which it also times on
+   the earlier routes). Phase 7's full-width readback runs stay at 13
+   cycles: at 11 the batched async run read no completion in one call.
 16. Prints timings as JSON: per cycle CUDA events from the delta upload
    to the prefix readback, and the host clock around the whole cycle
    (including the workload's own bookkeeping); each kernel alone by CUDA
@@ -463,8 +482,9 @@ CUMSUM_SHAPES = ((262144, 2), (131072, 2), (8192,), (16384,))
 REB_P, REB_H, REB_U = 64, 2000, 500
 REB_SAFE_DRU, REB_MIN_DRU_DIFF = 0.5, 0.1
 # the sweeps also timed and profiled on the routes before the cluster
-# routes, in turns with the new routes
-REB_PARENT_VARIANTS = ("exact", "t300k_capped8192")
+# routes, in turns with the new routes (the exact sweep too until the
+# day soak came: cut to make room for it)
+REB_PARENT_VARIANTS = ("t300k_capped8192",)
 REB_VARIANTS = (("exact", 50_000, False, None),
                 ("capped8192", 50_000, False, 8192),
                 ("gpu_exact", 50_000, True, None),
@@ -480,6 +500,8 @@ SUM_LEVELS_N = 300_000 + REB_P
 E2E_SHAPE = dict(P0=100_000, H=10_000, U=500)
 E2E_AGREE = 4
 E2E_AGREE_MAX = 64
+# (11 in one round of the day soak's cuts: the async run then read no
+# completion in one call; completions flow back from the 11th cycle on)
 E2E_READBACK_CYCLES = 13
 # cycles in all, the first E2E_WARMUP untimed (bench.py's sense)
 E2E_CYCLES = 25
@@ -490,7 +512,8 @@ E2E_MATCHERS = (("sequential", None), ("batched", C_BATCHED))
 # SERVER_CLIENTS client threads; resident cycles to run (and the seconds
 # they may take); batched cycles' seconds to wait for a dense round;
 # deterministic cycles held against the CPU path
-SERVER_P, SERVER_H, SERVER_U = 100_000, 10_000, 500
+# (P = 100,000 until the day soak came: cut to make room for it)
+SERVER_P, SERVER_H, SERVER_U = 25_000, 10_000, 500
 # the C = 8,192 server's backlog: the first of the same jobs
 SERVER_BATCHED_P = 30_000
 # a share of the jobs carries a rack constraint (as phase 4's pool
@@ -593,6 +616,13 @@ SOAK_FAILOVER = dict(jobs=6, agents=2, window_s=4.0, wall_s=90.0, kills=1,
                      partitions=1)
 SOAK_SEED = 31
 SOAK_AB_CYCLES, SOAK_AB_WARMUP = 12, 4
+# phase 15's day soak: tests/test_day_soak.py:27's QUICK tier at seed 101
+# and its quiet baseline (:77-103, seed 7), the server on the card
+DAY_QUICK = dict(jobs=6, agents=3, window_s=3.0, wall_s=75.0, max_kills=1)
+DAY_QUICK_SEED = 101
+DAY_QUIET = dict(jobs=6, agents=2, window_s=2.0, wall_s=60.0, max_kills=0,
+                 churn=False, transport=False)
+DAY_QUIET_SEED = 7
 # the port's files R1 covers when it scans the package
 R1_SCOPE = ("cook_tpu_torch/ops/", "cook_tpu_torch/parallel/",
             "cook_tpu_torch/scheduler/resident.py")
@@ -1716,10 +1746,11 @@ def rebalance_phase(dev):
         for k, v in d.items():
             launches[k] += v
         T = T0 + REB_P
-        # one launch a call: the usage scatter (T tasks onto U + 1) on
-        # the cluster route, the freed-resource sums on the one-CTA
-        # kernel, past SUM_MAX on the cluster
-        need = {"blocked_cumsum": 2 * REB_P,
+        # one launch a call: the DRU cumsum (the cover test's prefix is
+        # an exact int64 sum, no kernel), the usage scatter (T tasks onto
+        # U + 1) on the cluster route, the freed-resource sums on the
+        # one-CTA kernel, past SUM_MAX on the cluster
+        need = {"blocked_cumsum": REB_P,
                 seg.scatter_plan(T, REB_U + 1)[0]: REB_P,
                 seg.sum_ordered_route(T): 2 * REB_P}
         if need.get("ordered_scatter/cluster") != REB_P:
@@ -3648,8 +3679,17 @@ def failover_leg(dev_name="cuda"):
                 return None
             return jobs if all(j.status == "completed" for j in jobs) \
                 else None
+        def report():
+            try:
+                states = sorted((j.status, j.state, len(j.instances))
+                                for j in survivor.query_jobs(uuids))
+            except Exception as e:
+                states = repr(e)
+            return (f"jobs (status, state, instances): {states}; the "
+                    f"survivor's log: {_log_tail(logs[standby])}; the "
+                    f"agent's: {_log_tail(agent_log, 800)}")
         jobs = _wait(done, FAILOVER_MAX_S, "failover: every job completes",
-                     poll=0.2)
+                     poll=0.2, report=report)
         bad = [(j.uuid, j.state) for j in jobs if j.state != "success"]
         if bad:
             fail(f"failover: jobs ended {bad[:3]}")
@@ -3911,6 +3951,52 @@ def soak_phase(dev):
         "expected_jobs", "server_deaths", "incarnations",
         "survivor_exact_scan_launches", "wall_s")}
     out["failover"]["leg_s"] = time.perf_counter() - t0
+
+    for leg, seed, scale in (("quick", DAY_QUICK_SEED, DAY_QUICK),
+                             ("quiet", DAY_QUIET_SEED, DAY_QUIET)):
+        t0 = time.perf_counter()
+        d = bench_torch.bench_day_soak(seed=seed, device=dev.type, **scale)
+        # ok: bench.py's ok, every gate, every incarnation on the card,
+        # exact_scan launched by the final one
+        bad = [] if d["ok"] else [
+            f"not ok: breaches {d['gate_breaches']}, bench.py's ok "
+            f"{d['bench_ok']}, incarnations {d['incarnations']}, the "
+            f"final one's launches {d['final_kernel_launches']} (every "
+            f"one that reported: {d['reported_kernel_launches']})"]
+        if chaos.controller.enabled or chaos.controller.stats()["sites"]:
+            bad.append(f"the transport-chaos controller was left armed: "
+                       f"{chaos.controller.stats()}")
+        if leg == "quick":
+            if d["server_deaths"] < 1:
+                bad.append("no coordinator SIGKILL landed")
+            if not d["transport_injected"]:
+                bad.append("no transport fault injected")
+            if not d["churn_events"]:
+                bad.append("the churn schedule was empty")
+        else:
+            if d["kills"] or d["server_deaths"]:
+                bad.append(f"{d['kills']} kills, {d['server_deaths']} "
+                           f"server deaths on a quiet day")
+            if d["transport_injected"]:
+                bad.append(f"{d['transport_injected']} transport faults "
+                           f"on a quiet day")
+            if d["overload_level_max"]:
+                bad.append(f"overload level {d['overload_level_max']} on "
+                           f"a quiet day")
+            if d["max_instances"] > 1:
+                bad.append(f"a job churned {d['max_instances']} instances "
+                           f"on a quiet day")
+        if bad:
+            fail(f"day soak, {leg} (seed {seed}): {bad[:5]}")
+        launches[f"day_soak_{leg}"] = total([d["final_kernel_launches"]])
+        out[f"day_soak_{leg}"] = {k: d[k] for k in (
+            "value", "unit", "seed", "wall_s", "server_deaths", "kills",
+            "churn_events", "transport_injected", "submit_p99_ms",
+            "max_rss_mb", "max_rss_own_mb", "overload_level_max",
+            "max_instances",
+            "ready_times_s", "incarnations", "final_exact_scan_launches",
+            "final_kernel_launches")}
+        out[f"day_soak_{leg}"]["leg_s"] = time.perf_counter() - t0
 
     ab = dict(cycles=SOAK_AB_CYCLES, warmup=SOAK_AB_WARMUP, device=dev)
     tmp = tempfile.mkdtemp(prefix="cook_smoke_ab_")

@@ -30,7 +30,6 @@ from cook_tpu_torch.obs import decisions as why_codes
 from cook_tpu_torch.ops import dru as dru_ops
 from cook_tpu_torch.ops import match as match_ops
 from cook_tpu_torch.ops import segments
-from cook_tpu_torch.ops.segments import segment_cumsum
 
 I32_MAX = torch.iinfo(torch.int32).max
 
@@ -107,6 +106,37 @@ class CycleResult(NamedTuple):
     why_idx: torch.Tensor         # (W,) i32 pending row at queue pos, -1
     why_code: torch.Tensor        # (W,) i32 reason code (0 = pad)
     why_amt: torch.Tensor         # (W,) f32 code-specific datum
+
+
+def exact_overage(over, demand, start_idx, room):
+    """The quota filter's overage of the mem and cpus lanes, `over` (n, k)
+    as the reference computes it (f32: usage + running demand - quota),
+    with its sign set by exact arithmetic. The reference reads each
+    row's running demand from an f32 cumsum over every row less its
+    segment's base; behind a large prefix (100,000 jobs of 1-4 GB, ~2.5e8
+    MB, where an f32 step is 16) the difference is off by several MB and
+    can refuse a job that fits its quota exactly, every cycle. Here the
+    demands `demand` (n, k), each row's segment starting at `start_idx`,
+    count in int64 units of 2^-24 rounded up (`segments.fixed_units`),
+    summed by `segments.cumsum_from_starts`: the global prefix less the
+    base is exact (a total past 2^63 wraps and cancels in the
+    difference) while a segment's own sum stays below 2^39. `room` (n,
+    k) is each row's floor((quota - usage) * 2^24), taken in float64
+    (exact for two f32 within 2^28 of each other; an unset quota clamps
+    to 2^62). Rounding up over-counts, by under 2^-24 a row whose demand
+    is below 0.5 and off that grid, so the exact test never admits a row
+    past its quota, and may refuse a row of such small demands that fits
+    to within those units.
+
+    The f32 datum (provenance's why_amt) keeps its value wherever its
+    sign agrees with the exact test; where they disagree it is the exact
+    overage rounded to f32 instead, at least 2^-24 when over and at most
+    0 when within, so its sign never contradicts the decision."""
+    exact = segments.cumsum_from_starts(
+        segments.fixed_units(demand, up=True), start_idx) - room
+    agree = (exact <= 0) == (over <= 0)
+    return torch.where(agree, over,
+                       exact.float() * (1.0 / segments.FIT_SCALE))
 
 
 def rank_and_match(
@@ -201,16 +231,25 @@ def rank_and_match(
     sort_user = torch.where(q_valid, q_user, U)
     uperm = torch.argsort(sort_user, stable=True)
     su = sort_user[uperm]
-    cum = segment_cumsum(
-        torch.stack([torch.where(q_valid, pend_mem[queue_perm], 0.0)[uperm],
-                     torch.where(q_valid, pend_cpus[queue_perm], 0.0)[uperm],
-                     q_valid[uperm].to(torch.float32)], -1), su)
+    demand = torch.stack(
+        [torch.where(q_valid, pend_mem[queue_perm], 0.0)[uperm],
+         torch.where(q_valid, pend_cpus[queue_perm], 0.0)[uperm],
+         q_valid[uperm].to(torch.float32)], -1)
+    start_idx = segments.segment_start_index(segments.segment_starts(su))
+    cum = segments.cumsum_from_starts(demand, start_idx)
     uid = torch.clamp(su, 0, U - 1).long()
     # signed per-dimension overage (positive = over quota)
     over = torch.stack(
         [u_mem[uid] + cum[:, 0] - user_quota_mem[uid],
          u_cpus[uid] + cum[:, 1] - user_quota_cpus[uid],
          u_cnt[uid] + cum[:, 2] - user_quota_count[uid]], -1)
+    # the mem and cpus lanes decide on the exact running demand (a
+    # difference from the reference: exact_overage)
+    room = segments.fixed_units(
+        torch.stack([user_quota_mem, user_quota_cpus], -1).double()
+        - usage[:, :2].double(), up=False)
+    over = torch.cat([exact_overage(over[:, :2], demand[:, :2], start_idx,
+                                    room[uid]), over[:, 2:]], -1)
     within = (over[:, 0] <= 0) & (over[:, 1] <= 0) & (over[:, 2] <= 0)
     within_q = torch.empty(P, dtype=torch.bool, device=dev)
     within_q[uperm] = within                                # queue order

@@ -323,11 +323,6 @@ def window_size(in_use, c_mem, c_cpus, dense_usable, mem_left, cpus_left,
     return mean_mem, mean_cpus, absorb, W
 
 
-# fixed-point units a unit of demand in `fits_exact`: every f32 of
-# magnitude >= 0.5 is on this grid
-FIT_SCALE = 2.0 ** 24
-
-
 def fits_exact(vals, p_host, left):
     """Whether each row's running demand on its host is at most that
     host's `left` + 1e-6, exactly. `vals` (n, k) are the rows' demands
@@ -339,9 +334,8 @@ def fits_exact(vals, p_host, left):
     is exact while its own sum stays below 2^39. Rounding up can only
     over-count, by under 2^-24 a row whose demand is off that grid
     (below 0.5)."""
-    q = torch.ceil(vals.double() * FIT_SCALE).to(torch.int64)
-    prefix = segment_cumsum(q, p_host)
-    cap = torch.floor((left.double() + 1e-6) * FIT_SCALE).to(torch.int64)
+    prefix = segment_cumsum(segments.fixed_units(vals, up=True), p_host)
+    cap = segments.fixed_units(left.double() + 1e-6, up=False)
     return (prefix <= cap).all(1)
 
 

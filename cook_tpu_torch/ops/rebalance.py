@@ -150,6 +150,18 @@ def rebalance(tasks: TaskState,
     runs over only the top-K candidate victims by DRU (lax.top_k's
     order: ties lowest index first) instead of all T task slots. None =
     exact.
+
+    One difference from the reference: whether a host's spare plus a
+    prefix of its candidates covers the job. The reference reads the
+    prefix from an f32 cumsum over the whole host-major sequence less
+    the host's base, which far from the start loses the low bits (in
+    bench_rebalance's pool a host ~1e4 MB in read its spare plus one
+    victim 2e-4 MB short of a job they cover, which then stayed
+    unplaced). The port sums in int64 units of 2^-24
+    (`segments.fixed_units`): the supply rounded down, the demand up, so
+    a prefix covers the job only when its exact sum does (exact for
+    values >= 0.5 and a host's sum below 2^39; a value below 0.5 off
+    that grid can under-count by under 2^-24).
     """
     T = tasks.user.shape[0]
     H = spare_mem.shape[0]
@@ -220,6 +232,14 @@ def rebalance(tasks: TaskState,
     pos = torch.arange(n_seq, device=dev)
     key_id = torch.full((1,), PENDING_KEY_ID, dtype=s_ids.dtype, device=dev)
 
+    # the cover test's supply and demand in int64 units of 2^-24, one
+    # row a lane (see above): the tasks' once, rounded down, and the
+    # jobs' once, rounded up
+    s_units = segments.fixed_units(torch.cat(
+        [s_mem[None], s_cpus[None], s_extra.t()], 0), up=False)
+    need_all = segments.fixed_units(torch.cat(
+        [pending.mem[None], pending.cpus[None], p_extra.t()], 0), up=True)
+
     s_valid = t_valid0[perm0]
     s_host = tasks.host[perm0]
     preempted = torch.zeros(T, dtype=torch.bool, device=dev)
@@ -278,29 +298,29 @@ def rebalance(tasks: TaskState,
             c_host = torch.where(k_keep, s_host[topi], H)
             c_dru = torch.where(k_keep, dru[topi], 0.0)
             c_user = s_user[topi]
-            c_mem = torch.where(k_keep, s_mem[topi], 0.0)
-            c_cpus = torch.where(k_keep, s_cpus[topi], 0.0)
-            c_extra = torch.where(k_keep[:, None], s_extra[topi], 0.0)
+            c_units = torch.where(k_keep[None], s_units[:, topi], 0)
         else:
             c_host = torch.where(cand, s_host, H)
             c_dru = torch.where(cand, dru, 0.0)
             c_user = s_user
-            c_mem = torch.where(cand, s_mem, 0.0)
-            c_cpus = torch.where(cand, s_cpus, 0.0)
-            c_extra = torch.where(cand[:, None], s_extra, 0.0)
+            c_units = torch.where(cand[None], s_units, 0)
         seq_host = torch.cat([host_ids, c_host])
         seq_dru = torch.cat([spare_dru, c_dru])
         seq_user = torch.cat([spare_user, c_user])
-        seq_res = torch.cat([
-            torch.cat([sp_mem[:, None], sp_cpus[:, None], sp_extra], -1),
-            torch.cat([c_mem[:, None], c_cpus[:, None], c_extra], -1)], 0)
-        j_req = torch.cat([j_mem, j_cpus, j_extra[0]])
+        sp_units = segments.fixed_units(torch.cat(
+            [sp_mem[None], sp_cpus[None], sp_extra.t()], 0), up=False)
         # the reference's last key, the index, is the order a stable
         # sort keeps anyway
         perm = dru_ops.lexsort((seq_user, -seq_dru, seq_host))
         p_host = seq_host[perm]
-        cums = segments.segment_cumsum(seq_res[perm], p_host)
-        feas = (cums >= j_req[None, :]).all(1) & (p_host < H)
+        # a difference from the reference: a prefix covers the job when
+        # its exact sum does (see `rebalance`); each lane a row, scanned
+        # along it, the global prefix less each host's base
+        units = torch.cat([sp_units, c_units], 1)[:, perm]
+        total = torch.cumsum(units, 1)
+        start = segments.segment_start_index(segments.segment_starts(p_host))
+        cums = total - (total[:, start] - units[:, start])
+        feas = (cums >= need_all[:, j, None]).all(0) & (p_host < H)
         feas &= ~j_forbidden[torch.clamp(p_host, 0, H - 1).long()]
         # first feasible position per host == the prefix with max min-dru
         first_pos = torch.full((H + 1,), n_seq, device=dev).scatter_reduce_(

@@ -325,10 +325,39 @@ def segment_cumsum(values: torch.Tensor, seg_ids: torch.Tensor) -> torch.Tensor:
     `seg_ids` must be run-contiguous. Works on float or int tensors (the
     result keeps `values`' dtype); the leading axis is the scan axis.
     """
+    return cumsum_from_starts(
+        values, segment_start_index(segment_starts(seg_ids)))
+
+
+def cumsum_from_starts(values: torch.Tensor,
+                       start_idx: torch.Tensor) -> torch.Tensor:
+    """`segment_cumsum` given each element's segment start
+    (`segment_start_index`), for callers that scan several value sets
+    over one segmentation."""
     total = cumsum0(values)
-    start_idx = segment_start_index(segment_starts(seg_ids))
     base = total[start_idx] - values[start_idx]
     return total - base
+
+
+# fixed-point units a unit of demand in the port's exact running sums
+# (match.fits_exact, the quota filter's `exact_overage`, the
+# rebalancer's cover test): every f32 of magnitude >= 0.5 is on this
+# grid. A limit (an unset quota is +inf) is clamped to +-FIT_LIMIT, far
+# past any sum it is compared with.
+FIT_SCALE = 2.0 ** 24
+FIT_LIMIT = 2.0 ** 62
+
+
+def fixed_units(x: torch.Tensor, up: bool) -> torch.Tensor:
+    """`x` (float32 or float64) in int64 units of 2^-24, rounded up
+    (`up`) or down, clamped to +-2^62. Scaling by a power of two, the
+    rounding to an integer and the conversion are exact in x's own
+    dtype, so an f32 of magnitude >= 0.5 converts exactly; one below
+    that is off the grid by under one unit, which the rounding puts on
+    the side the caller asks for."""
+    y = x * FIT_SCALE
+    y = torch.ceil(y) if up else torch.floor(y)
+    return torch.clamp(y, -FIT_LIMIT, FIT_LIMIT).to(torch.int64)
 
 
 def _check_scatter(out, idx, vals):

@@ -376,9 +376,9 @@ def test_r1_names_the_port_syncs(port_tree):
     for rel, pattern in want:
         assert (f"cook_tpu_torch/{rel}", _line_of(rel, pattern)) in r1s, \
             (rel, pattern)
-    assert ("cook_tpu_torch/ops/cycle.py", 220) in r1s
-    assert ("cook_tpu_torch/ops/cycle.py", 222) in r1s
-    assert ("cook_tpu_torch/ops/match.py", 631) in r1s
+    assert ("cook_tpu_torch/ops/cycle.py", 259) in r1s
+    assert ("cook_tpu_torch/ops/cycle.py", 261) in r1s
+    assert ("cook_tpu_torch/ops/match.py", 625) in r1s
     assert ("cook_tpu_torch/ops/match.py", 208) in r1s
     div = _line_of("ops/fused_match.py", "return int(bad.item())")
     assert ("cook_tpu_torch/ops/fused_match.py", div) not in r1s

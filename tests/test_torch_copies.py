@@ -429,11 +429,44 @@ UNPORTED = {
 }
 
 
+# the ported device modules are rewritten for PyTorch, not copied, so
+# they are not diffed as text; where they decide otherwise than the
+# reference on purpose (ROADMAP Queue C), the hunk that does it is listed
+# here by file, each present once in the port and absent from the
+# reference: (hunk, why)
+PORT_DIFFERENCES = {
+    "ops/match.py": [
+        ("""                   & fits_exact(torch.where(p_bids[:, None], vals[:, :3],
+                                            0.0), p_host, left))""",
+         "an f32-cancelled running demand let a host take a bid that "
+         "overcommits it"),
+    ],
+    "ops/cycle.py": [
+        ("""    over = torch.cat([exact_overage(over[:, :2], demand[:, :2], start_idx,
+                                    room[uid]), over[:, 2:]], -1)""",
+         "behind a long prefix the f32 running demand refused a job that "
+         "fits its quota exactly"),
+    ],
+    "ops/rebalance.py": [
+        ("""        units = torch.cat([sp_units, c_units], 1)[:, perm]
+        total = torch.cumsum(units, 1)""",
+         "far into the host-major sequence the f32 prefix read a covering "
+         "victim set short and left the job unplaced"),
+    ],
+}
+
+
+@pytest.mark.parametrize("rel", sorted(PORT_DIFFERENCES))
+def test_port_differences_are_listed(rel):
+    port, ref = (PORT / rel).read_text(), (REF / rel).read_text()
+    for hunk, why in PORT_DIFFERENCES[rel]:
+        assert port.count(hunk) == 1, (rel, hunk[:60])
+        assert hunk not in ref and why
+
+
 # bench.py's modes with no counterpart in bench_torch.py's MODES, and
 # why (ROADMAP: Queue A, and "Not queued")
 UNPORTED_MODES = {
-    # queued: ROADMAP Queue A 1, tests/daysoak.py on the port's servers
-    "day-soak": "queued",
     # A/Bs the use_pallas switch, which the port does not have
     "pallas": "not queued",
     # the store and the log alone, code the port copies verbatim; none
@@ -464,6 +497,49 @@ def test_every_module_of_the_reference_has_a_counterpart():
     assert (PORT / "analysis/trace_purity.py").exists()
     assert {"exact_scan.cu", "best_host.cu"} <= {
         f.name for f in (PORT / "csrc").glob("*.cu")}
+
+
+# tests/torch_daysoak.py's own-memory reading, added after _server_rss_mb
+OWN_RSS_FN = '''
+
+def _server_own_rss_mb(sup) -> float:
+    """The server's resident memory less the clean pages of the files it
+    maps read-only (its libraries' code and constant data): the memory
+    the server itself holds, which is what grows with its backlog or a
+    leak. Read from /proc/<pid>/smaps: each read-only file mapping
+    counts only its Anonymous (copied-on-write) pages, every other
+    mapping its whole Rss. Where smaps has no Anonymous field the
+    read-only file mappings count nothing, which under-counts by their
+    relocated pages (a few MB). The pages left out sit in the page
+    cache, shared with every process that maps the same files: torch
+    built for CUDA maps its CUDA libraries (GBs of them resident on an
+    H100 host: `bench_torch.py day-soak` prints both readings)."""
+    proc = getattr(sup, "_proc", None)
+    if proc is None or proc.poll() is not None:
+        return 0.0
+    total_kb = shared_kb = 0
+    clean = False
+    try:
+        with open(f"/proc/{proc.pid}/smaps") as f:
+            for line in f:
+                key = line.split(None, 1)[0]
+                if key == "Rss:":
+                    kb = int(line.split()[1])
+                    total_kb += kb
+                    if clean:
+                        shared_kb += kb
+                elif key == "Anonymous:" and clean:
+                    shared_kb -= int(line.split()[1])
+                elif not key.endswith(":"):
+                    # a mapping's header: range perms offset dev inode path
+                    parts = line.split(None, 5)
+                    path = parts[5].strip() if len(parts) > 5 else ""
+                    clean = (parts[1][1] == "-" and path != ""
+                             and not path.startswith("["))
+    except (OSError, IndexError, ValueError):
+        return 0.0
+    return (total_kb - shared_kb) / 1024.0
+'''
 
 
 # the soak harnesses the port's failover soak runs on, copied from the
@@ -572,6 +648,89 @@ replay."""),
                         max_kills=0, overrides=overrides, device=device),
         "b": LiveServer(store_root, name="b", sites=None, seed=seed,
                         max_kills=0, overrides=overrides, device=device),"""),
+    ]),
+    "torch_daysoak.py": ("daysoak.py", [
+        # the coordinator is the port's server, on the device given, and
+        # the evidence names each of its incarnations
+        ("""  - transport chaos: the ``cook_tpu.chaos`` controller armed in the""",
+         """  - transport chaos: the ``cook_tpu_torch.chaos`` controller armed in the"""),
+        ("""  - process chaos: ``chaos.procfault`` SIGKILLs the real coordinator
+    subprocess at seeded store/cycle kill points (tests.livestack);""",
+         """  - process chaos: ``chaos.procfault`` SIGKILLs the real coordinator
+    subprocess (the port's server, on the device it is given) at seeded
+    store/cycle kill points (tests.torch_livestack);"""),
+        ("""The harness COLLECTS evidence; the caller (tests/test_day_soak.py, or
+``bench.py day-soak`` for the nightly full-magnitude run) asserts the
+gates: zero lost jobs, at-most-once launch per task_id across every
+agent incarnation, monotone instance history across coordinator
+restarts, bounded server RSS, bounded front-door p99.""",
+         """The harness COLLECTS evidence; the caller
+(tests/test_torch_day_soak.py, chip_smoke.py, or ``bench_torch.py
+day-soak`` for the full-magnitude run on the card) asserts the gates:
+zero lost jobs, at-most-once launch per task_id across every agent
+incarnation, monotone instance history across coordinator restarts,
+bounded server RSS, bounded front-door p99."""),
+        ("""from tests.torch_livestack import LiveServer
+""",
+         """from tests.torch_livestack import LiveServer, incarnations
+"""),
+        ('''                 churn=True, transport=True, kill_sites=None):
+    """One compressed day. Returns an evidence dict; asserts nothing.
+''',
+         '''                 churn=True, transport=True, kill_sites=None,
+                 device="cuda"):
+    """One compressed day. Returns an evidence dict; asserts nothing.
+    The server runs on ``device`` ("cuda" unless the caller asks for
+    "cpu"); the evidence's ``incarnations`` are its incarnations
+    (``tests.torch_livestack.incarnations``), read once it stopped, so
+    the last one's kernel launches are in it.
+'''),
+        ("""    ``bench.py day-soak``): jobs=120, agents=6, window_s=30, wall_s=600,""",
+         """    ``bench_torch.py day-soak``): jobs=120, agents=6, window_s=30,
+    wall_s=600,"""),
+        ("""                                 {"heartbeat_timeout_s": 6.0}})""",
+         """                                 {"heartbeat_timeout_s": 6.0}},
+                      device=device)"""),
+        # a port-only measure: the server's own memory beside its RSS
+        # (bench_torch.day_soak_gates holds a CUDA server to it)
+        ("""                    return float(line.split()[1]) / 1024.0
+    except OSError:
+        pass
+    return 0.0
+""",
+         """                    return float(line.split()[1]) / 1024.0
+    except OSError:
+        pass
+    return 0.0
+""" + OWN_RSS_FN),
+        ("""    max_rss_mb = 0.0
+""",
+         """    max_rss_mb = 0.0
+    max_rss_own_mb = 0.0
+"""),
+        ("""            max_rss_mb = max(max_rss_mb, _server_rss_mb(live.sup))
+""",
+         """            max_rss_mb = max(max_rss_mb, _server_rss_mb(live.sup))
+            max_rss_own_mb = max(max_rss_own_mb,
+                                 _server_own_rss_mb(live.sup))
+"""),
+        ("""            "max_rss_mb": round(max_rss_mb, 1),
+""",
+         """            "max_rss_mb": round(max_rss_mb, 1),
+            "max_rss_own_mb": round(max_rss_own_mb, 1),
+"""),
+        ("""        return {
+            "seed": seed,""",
+         """        out = {
+            "seed": seed,"""),
+        ("""                pass
+        live.stop()
+""",
+         """                pass
+        live.stop()
+    out["incarnations"] = incarnations(live.server_log)
+    return out
+"""),
     ]),
 }
 _TEST_IMPORT = re.compile(r"^(\s*from )tests\.livestack(?= import)", re.M)

@@ -457,7 +457,7 @@ def test_bench_torch_runs_on_cpu_without_jax(mode):
                                   "e2e-smoke", "e2e-batched", "e2e-async",
                                   "longevity", "longevity-async", "ingest",
                                   "fleet", "fleet-worker", "failover",
-                                  "decision-overhead", "trace-overhead",
+                                  "day-soak", "decision-overhead", "trace-overhead",
                                   "profile-overhead", "chaos-overhead"])
 def test_bench_torch_mode_raises_without_cuda(mode):
     """Without a card and without `--device cpu` a mode raises before
